@@ -22,7 +22,8 @@ def test_bench_first_stdout_line_is_headline_json():
     rec = json.loads(lines[0])
     assert rec["unit"] == "cell-updates/s"
     assert rec["value"] > 0
-    assert rec["vs_baseline"] > 0
+    assert rec["device"]["platform"] == "cpu"
+    assert rec["device"]["count"] >= 1 and rec["device"]["kind"]
     assert "dct" in rec["metric"].lower() or \
         rec["extra"]["projection"] == "dct"
     assert rec["extra"]["finite"] is True

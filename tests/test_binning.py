@@ -127,21 +127,3 @@ def test_morton_roundtrip():
     assert int(binning.morton_encode(0, 1, 0)) == 2
     assert int(binning.morton_encode(0, 0, 1)) == 4
     assert int(binning.morton_encode(3, 3, 3)) == 63
-
-
-def test_suggest_col_cap():
-    import numpy as np
-    from tpufluids.binning import suggest_col_cap
-    from tpufluids.config import BASE_CONFIG
-    from tpufluids.state import make_state
-    import jax.numpy as jnp
-    # 100 particles stacked in one column -> cap >= 100, rounded to 8
-    pos = np.zeros((100, 3), np.float32)
-    pos[:, 2] = np.linspace(-0.9, 0.9, 100)
-    s = make_state(jnp.asarray(pos), cfg=BASE_CONFIG)
-    cap = suggest_col_cap(s, BASE_CONFIG, headroom=1.0, minimum=0)
-    assert cap == 104  # ceil(100/8)*8
-    # spread out -> minimum floor
-    pos2 = np.random.default_rng(0).uniform(-0.9, 0.9, (100, 3))
-    s2 = make_state(jnp.asarray(pos2, jnp.float32), cfg=BASE_CONFIG)
-    assert suggest_col_cap(s2, BASE_CONFIG) == 64

@@ -1,4 +1,4 @@
-"""Golden-step tests: the binned, gather-based TPU implementation must
+"""Golden-step tests: the binned, gather-based implementation must
 match the dense O(N^2) NumPy oracle (stencil-masked) to float32
 tolerance, for both variants, over multiple steps."""
 

@@ -125,12 +125,12 @@ def test_sharded_rejects_multigrid():
         grid_sharded.make_sharded_step(make_mesh(2), cfg)
 
 
-@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
 def test_sharded_dct_projection_matches_dense(n_dev):
     """Spectral projection over x-slabs (partial matmul + psum_scatter)
     vs the single-device DCT solve."""
     cfg = stam.StamConfig(n=16, dt=0.05, projection="dct",
-                          buoyancy_beta=0.5, solver_backend="xla")
+                          buoyancy_beta=0.5)
     dense = seeded3d(cfg, seed=5)
     dense = dense.replace(
         u=stam.set_bnd3d(1, dense.u), v=stam.set_bnd3d(2, dense.v),
@@ -156,161 +156,30 @@ def test_sharded_dct_projection_matches_dense(n_dev):
     assert float(res) < 1e-4
 
 
-@pytest.mark.parametrize("n_dev,radix_min", [(1, 0), (2, 0), (2, 16)])
-def test_sharded_pallas_dct_step_matches_dense(n_dev, radix_min):
-    """The Pallas per-shard pipeline with the SPECTRAL projection
-    (_dct_solve_local_zg: zg-layout partial matmul + psum_scatter)
-    matches the dense DCT step — round-4 regression guard: without
-    the zg dct path a projection='dct' sharded step silently fell
-    back to the XLA slab step whose 256^3 compile killed the TPU
-    worker in the config-5 bench secondary.  radix_min=16 exercises
-    the radix-2 split on the slab's local y/z transforms (the same
-    split the dense ref then uses — both must agree)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = 32
-    cfg = stam.StamConfig(n=n, dt=0.02, projection="dct", red_black=True,
-                          advect_mode="stencil", vorticity_eps=2.0,
-                          buoyancy_alpha=0.05, buoyancy_beta=1.0,
-                          solver_backend="xla", dct_radix_min=radix_min)
-    dense = seeded3d(cfg, seed=11)
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_sharded_plume_dct_matches_dense(n_dev):
+    """The BASELINE config-5 step shape (buoyancy, vorticity
+    confinement, spectral projection with a cheaper first solve) over
+    x-slabs matches the dense step."""
+    cfg = stam.StamConfig(n=16, dt=0.03, projection="dct",
+                          buoyancy_alpha=0.05, buoyancy_beta=0.5,
+                          vorticity_eps=2.0, dct_precision_first="default")
+    dense = seeded3d(cfg, seed=9, vel_scale=0.2)
     dense = dense.replace(
         u=stam.set_bnd3d(1, dense.u), v=stam.set_bnd3d(2, dense.v),
         w=stam.set_bnd3d(3, dense.w), dens=stam.set_bnd3d(0, dense.dens),
         temp=stam.set_bnd3d(0, dense.temp))
-
-    ref = dense
+    ref, ref_res = dense, None
     for _ in range(2):
-        ref = stam.step3d(ref, cfg)
-
+        ref, ref_res = stam.step3d(ref, cfg, with_residual=True)
     mesh = make_mesh(n_dev)
-    step = grid_sharded.make_sharded_step(mesh, cfg, n_steps=2,
-                                          backend="pallas")
-    sh = grid_sharded.shard_state(grid_sharded.to_sharded_layout(dense),
-                                  mesh)
-    with pltpu.force_tpu_interpret_mode():
-        out, res = step(sh)
+    step = grid_sharded.make_sharded_step(mesh, cfg, n_steps=2)
+    out, res = step(grid_sharded.shard_state(
+        grid_sharded.to_sharded_layout(dense), mesh))
     out_full = grid_sharded.from_sharded_layout(jax.device_get(out), cfg)
-
     for f in ("u", "v", "w", "dens", "temp"):
-        a = np.asarray(getattr(out_full, f))
-        b = np.asarray(getattr(ref, f))
-        np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-5, err_msg=f)
-    # exact solve: residual at float32-roundoff scale
-    assert float(res) < 1e-4
-
-
-@pytest.mark.parametrize("n_dev", [1, 2, 4])
-def test_sharded_pallas_step_matches_dense(n_dev):
-    """The Pallas per-shard pipeline (deep-halo packed solver +
-    slab-placed forcing/div/gradsub/advect kernels) matches the dense
-    step — interpret mode on the CPU mesh; real-TPU numbers via
-    bench.py config 5."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = 32
-    cfg = stam.StamConfig(n=n, dt=0.02, jacobi_iters=8, red_black=True,
-                          advect_mode="stencil", vorticity_eps=2.0,
-                          buoyancy_alpha=0.05, buoyancy_beta=1.0,
-                          visc=1e-4, diff=1e-4, temp_diff=1e-4,
-                          solver_backend="xla")
-    dense = seeded3d(cfg, seed=3)
-    dense = dense.replace(
-        u=stam.set_bnd3d(1, dense.u), v=stam.set_bnd3d(2, dense.v),
-        w=stam.set_bnd3d(3, dense.w), dens=stam.set_bnd3d(0, dense.dens),
-        temp=stam.set_bnd3d(0, dense.temp))
-
-    ref = dense
-    for _ in range(2):
-        ref = stam.step3d(ref, cfg)
-
-    mesh = make_mesh(n_dev)
-    step = grid_sharded.make_sharded_step(mesh, cfg, n_steps=2,
-                                          backend="pallas")
-    sh = grid_sharded.shard_state(grid_sharded.to_sharded_layout(dense),
-                                  mesh)
-    with pltpu.force_tpu_interpret_mode():
-        out, res = step(sh)
-    out_full = grid_sharded.from_sharded_layout(jax.device_get(out), cfg)
-
-    for f in ("u", "v", "w", "dens", "temp"):
-        a = np.asarray(getattr(out_full, f))
-        b = np.asarray(getattr(ref, f))
-        np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-5, err_msg=f)
-    assert np.isfinite(float(res))
-
-
-def test_sharded_pallas_rejects_unsupported():
-    mesh = make_mesh(2)
-    cfg = stam.StamConfig(n=16, jacobi_iters=8, red_black=False)
-    with pytest.raises(ValueError):
-        grid_sharded.make_sharded_step(mesh, cfg, backend="pallas")
-
-
-def test_sharded_pallas_tiny_slab_plan():
-    """c_local=2 slabs must pick a halo that fits in one slab
-    (rb_shard_plan halo <= c_local; review finding r2): the 8-device
-    16^3 pallas step hit a trace-time deep-halo shape mismatch.
-
-    Interpret-mode pallas deadlocks beyond 4 virtual devices (its
-    io_callback barrier), so this traces the step abstractly — the
-    original failure was raised during tracing."""
-    from tpufluids.grid.pallas_kernels import rb_shard_plan
-
-    # fuse 4/2 give halo 8/4 > c_local=2 and must be skipped
-    assert rb_shard_plan(2, 18, 18, 8)[1] == 1
-    assert rb_shard_plan(2, 18, 18, 20)[1] == 1
-
-    n = 16
-    cfg = stam.StamConfig(n=n, dt=0.02, jacobi_iters=8, red_black=True,
-                          advect_mode="stencil", solver_backend="xla")
-    dense = seeded3d(cfg, seed=5)
-    mesh = make_mesh(8)   # c_local = 2
-    step = grid_sharded.make_sharded_step(mesh, cfg, n_steps=1,
-                                          backend="pallas")
-    sh = grid_sharded.shard_state(grid_sharded.to_sharded_layout(dense),
-                                  mesh)
-    out, res = jax.eval_shape(step, sh)
-    assert res.shape == ()
-
-
-def test_sharded_pallas_rejects_odd_slab():
-    """Explicit backend='pallas' with an odd per-device slab must raise
-    instead of silently running the XLA step (review finding r2)."""
-    mesh = make_mesh(8)
-    cfg = stam.StamConfig(n=24, jacobi_iters=8, red_black=True,
-                          advect_mode="stencil")   # c_local = 3
-    with pytest.raises(ValueError, match="even per-device slab"):
-        grid_sharded.make_sharded_step(mesh, cfg, backend="pallas")
-
-
-@pytest.mark.parametrize("n_dev", [1, 2, 4])
-def test_refresh_halo_multi_matches_per_field(n_dev):
-    """The batched halo refresh (r5: one 2k-row ppermute per direction
-    for grouped fields) is bitwise identical to per-field refreshes."""
-    import numpy as np
-    from functools import partial
-
-    mesh = make_mesh(n_dev)
-    rng = np.random.default_rng(0)
-    c = 8
-    qs = tuple(jnp.asarray(rng.normal(0, 1, (c + 4, 10, 12)),
-                           jnp.float32) for _ in range(5))
-    bs = (1, 2, 3, 0, 0)
-
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(jax.sharding.PartitionSpec(),) * 5,
-             out_specs=(jax.sharding.PartitionSpec(
-                 grid_sharded.AXIS),) * 10,
-             check_vma=False)
-    def run(*qs):
-        multi = grid_sharded._refresh_halo_multi(qs, bs, n_dev)
-        per = tuple(grid_sharded._refresh_halo(q, b, n_dev)
-                    for q, b in zip(qs, bs))
-        return multi + per
-
-    out = run(*qs)
-    for i in range(5):
-        np.testing.assert_array_equal(np.asarray(out[i]),
-                                      np.asarray(out[5 + i]),
-                                      err_msg=f"field {i}")
+        np.testing.assert_allclose(
+            np.asarray(getattr(out_full, f)),
+            np.asarray(getattr(ref, f)), rtol=2e-4, atol=2e-5, err_msg=f)
+    np.testing.assert_allclose(float(res), float(ref_res), rtol=0.5,
+                               atol=1e-6)

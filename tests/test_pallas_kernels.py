@@ -1,162 +1,13 @@
-"""Pallas kernel correctness on CPU (interpret mode) + stencil advection
-equivalence.  The same kernels are validated bit-exactly on real TPU by
-the bench/verify flow.
-
-The z-ghostless kernels synthesize ghost taps from the set_bnd
-invariant, so their contract requires inputs whose ghost planes are
-set_bnd-consistent (every real call site: zero initial guesses,
-post-set_bnd fields).  Random test inputs are made consistent with one
-set_bnd3d application before BOTH the dense reference and the kernel —
-agreement is then bit-exact."""
+"""The SPH cell-list kernel (tpufluids/sph_triton.py) under the Pallas
+interpreter, against the XLA pair pass and the float64 oracle, and the
+XLA stencil advection against the gather formulation."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from tpufluids.grid import stam
 
-
-@pytest.fixture
-def rand3d():
-    rng = np.random.default_rng(0)
-    n = 14
-    x = jnp.asarray(rng.normal(0, 1, (n + 2,) * 3), jnp.float32)
-    x0 = jnp.asarray(rng.normal(0, 1, (n + 2,) * 3), jnp.float32)
-    return x, x0
-
-
-@pytest.mark.parametrize("b", [0, 1, 2, 3])
-@pytest.mark.parametrize("red_black", [False, True])
-def test_pallas_solver_matches_dense_interpret(rand3d, b, red_black,
-                                               monkeypatch):
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_pallas
-    x, x0 = rand3d
-    x = stam.set_bnd3d(b, x)
-    ref = stam.lin_solve3d(b, x, x0, 1.0, 6.0, 4, red_black=red_black)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_pallas(b, x, x0, 1.0, 6.0, 4,
-                                 red_black=red_black, tx=4)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("b", [0, 2])
-@pytest.mark.parametrize("red_black", [False, True])
-def test_pallas_solver_whole_matches_dense_interpret(rand3d, b,
-                                                     red_black):
-    """Whole-solve mode of lin_solve3d_pallas (tx=n_full, fuse=iters):
-    one resident-in-VMEM kernel call, bit-compatible with the dense
-    solver (same sweep code, window = the whole array)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_pallas
-    x, x0 = rand3d
-    x = stam.set_bnd3d(b, x)
-    ref = stam.lin_solve3d(b, x, x0, 1.0, 6.0, 4, red_black=red_black)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_pallas(b, x, x0, 1.0, 6.0, 4,
-                                 red_black=red_black, tx=x.shape[0],
-                                 fuse=4)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-@pytest.mark.parametrize("red_black", [False, True])
-def test_project3d_whole_matches_composition_interpret(red_black):
-    """The fused whole-projection kernel (div + solve + gradsub in one
-    call, dispatched by stam.project3d) must be bit-identical to the
-    3-call pallas composition it replaces, and match the dense XLA
-    path to the 1-2 ulp the gradient stage's op-order difference
-    allows (XLA constant-folds the /h into a multiply)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid import pallas_kernels as pk
-    rng = np.random.default_rng(11)
-    n = 14
-    shape = (n + 2,) * 3
-    u = stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 1, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 1, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 1, shape),
-                                      jnp.float32))
-    cfg_x = stam.StamConfig(n=n, jacobi_iters=4, red_black=red_black,
-                            solver_backend="xla")
-    cfg_p = cfg_x.replace(solver_backend="pallas")
-    ref = stam.project3d(u, v, w, cfg_x)
-    with pltpu.force_tpu_interpret_mode():
-        got = stam.project3d(u, v, w, cfg_p)
-        div = pk.div3d_pallas(u, v, w)
-        if red_black:
-            p = pk.lin_solve3d_rb_packed(0, jnp.zeros_like(u), div,
-                                         1.0, 6.0, 4, tx=n + 2, fuse=4,
-                                         x_zero=True)
-        else:
-            p = pk.lin_solve3d_pallas(0, jnp.zeros_like(u), div, 1.0,
-                                      6.0, 4, tx=n + 2, fuse=4)
-        comp = pk.gradsub3d_pallas(p, u, v, w)
-    for g, c, r, name in zip(got, comp, ref, "uvw"):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(c),
-                                      err_msg=name)
-        np.testing.assert_allclose(np.asarray(g), np.asarray(r),
-                                   rtol=0, atol=1e-6, err_msg=name)
-
-
-@pytest.mark.parametrize("forcing,red_black", [(False, True),
-                                               (True, True),
-                                               (True, False)])
-def test_step3d_whole_matches_multicall_interpret(forcing, red_black,
-                                                  monkeypatch):
-    """The fused whole-step kernel (ONE call per step) must be
-    bit-identical to the multi-call pallas step it replaces."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid import pallas_kernels as pk
-    n = 14
-    kw = (dict(buoyancy_alpha=0.05, buoyancy_beta=1.0,
-               vorticity_eps=2.0) if forcing else {})
-    cfg = stam.StamConfig(n=n, dt=0.05, diff=1e-5, visc=1e-5,
-                          temp_diff=2e-5, jacobi_iters=4,
-                          red_black=red_black, advect_mode="stencil",
-                          solver_backend="pallas", **kw)
-    s = stam.make_grid3d(cfg)
-    s = s.replace(
-        dens=stam.set_bnd3d(0, s.dens.at[5:9, 5:9, 2:5].set(1.0)),
-        temp=stam.set_bnd3d(0, s.temp.at[5:9, 5:9, 2:5].set(3.0)),
-        u=stam.set_bnd3d(1, s.u.at[4:10, 4:10, 4:8].set(0.3)),
-        w=stam.set_bnd3d(3, s.w.at[4:10, 4:10, 4:8].set(-0.2)))
-    with pltpu.force_tpu_interpret_mode():
-        got = stam.step3d(s, cfg)
-        monkeypatch.setattr(pk, "step_whole_ok", lambda shape: False)
-        ref = stam.step3d(s, cfg)
-    for f in ("u", "v", "w", "dens", "temp"):
-        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
-                                      np.asarray(getattr(ref, f)),
-                                      err_msg=f)
-
-
-def test_diffuse3d_whole_multi_matches_sequential_interpret():
-    """The multi-field whole diffuse (one kernel call for several
-    independent jacobi systems) must be bit-identical to sequential
-    whole-solve diffuse calls per field."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import (diffuse3d_whole_multi,
-                                               lin_solve3d_pallas)
-    rng = np.random.default_rng(13)
-    n = 14
-    shape = (n + 2,) * 3
-    xs, flds = [], []
-    for b, coeff in ((1, 2e-4), (2, 2e-4), (0, 5e-5)):
-        x = stam.set_bnd3d(b, jnp.asarray(rng.normal(0, 1, shape),
-                                          jnp.float32))
-        a = 0.05 * coeff * n * n
-        xs.append(x)
-        flds.append((b, float(a), float(1.0 + 6.0 * a)))
-    with pltpu.force_tpu_interpret_mode():
-        got = diffuse3d_whole_multi(tuple(xs), tuple(flds), 4)
-        refs = [lin_solve3d_pallas(b, x, x, a, c, 4, tx=n + 2, fuse=4)
-                for x, (b, a, c) in zip(xs, flds)]
-    for g, r, (b, _, _) in zip(got, refs, flds):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(r),
-                                      err_msg=f"b={b}")
 
 
 @pytest.mark.parametrize("nd", [2, 3])
@@ -193,8 +44,7 @@ def test_stencil_advection_clamps_beyond_one_cell():
 
 def test_run3d_python_matches_scan():
     cfg = stam.StamConfig(n=12, dt=0.02, jacobi_iters=8,
-                          buoyancy_beta=0.5, advect_mode="stencil",
-                          solver_backend="xla")
+                          buoyancy_beta=0.5, advect_mode="stencil")
     s = stam.make_grid3d(cfg)
     s = s.replace(temp=s.temp.at[4:8, 4:8, 2:4].set(2.0),
                   dens=s.dens.at[4:8, 4:8, 2:4].set(1.0))
@@ -206,393 +56,17 @@ def test_run3d_python_matches_scan():
     np.testing.assert_allclose(float(res_a[-1]), float(res_b[-1]))
 
 
-def test_advect_multi_pallas_matches_stencil_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import advect3d_multi_pallas
-    rng = np.random.default_rng(5)
-    n = 14
-    cfg = stam.StamConfig(n=n, dt=0.03)
-    shape = (n + 2,) * 3
-    u = stam.set_bnd3d(1, jnp.asarray(rng.uniform(-0.9, 0.9, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.uniform(-0.9, 0.9, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.uniform(-0.9, 0.9, shape),
-                                      jnp.float32))
-    d = stam.set_bnd3d(0, jnp.asarray(rng.uniform(0, 1, shape),
-                                      jnp.float32))
-    refs = [stam.advect3d_stencil(b, q, u, v, w, cfg)
-            for b, q in ((1, u), (2, v), (3, w), (0, d))]
-    with pltpu.force_tpu_interpret_mode():
-        outs = advect3d_multi_pallas((u, v, w, d), (1, 2, 3, 0), u, v, w,
-                                     float(cfg.dt * n), tx=4)
-    for r, o in zip(refs, outs):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r), atol=3e-6)
-
-
-def test_forcing_pallas_matches_dense_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import forcing3d_pallas
-    rng = np.random.default_rng(6)
-    n = 12
-    cfg = stam.StamConfig(n=n, dt=0.02, vorticity_eps=3.0,
-                          buoyancy_alpha=0.05, buoyancy_beta=1.0,
-                          ambient_temp=0.2)
-    shape = (n + 2,) * 3
-    u = stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    d = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-    t = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-    w_ref = stam.buoyancy3d(w, d, t, cfg)
-    u_ref, v_ref, w_ref = stam.vorticity_confinement3d(u, v, w_ref, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        uo, vo, wo = forcing3d_pallas(
-            u, v, w, d, t, float(cfg.dt), 1.0 / n, cfg.vorticity_eps,
-            cfg.buoyancy_alpha, cfg.buoyancy_beta, cfg.ambient_temp, tx=4)
-    for a, b in ((u_ref, uo), (v_ref, vo), (w_ref, wo)):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=3e-6)
-
-
-@pytest.mark.parametrize("b", [0, 1, 2])
-def test_lin_solve2d_pallas_matches_dense_interpret(b):
-    """The whole-solve-in-VMEM 2D kernel must be bit-compatible with
-    stam.lin_solve2d (Jacobi + set_bnd2d incl. corner averages)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve2d_pallas
-    rng = np.random.default_rng(1)
-    n = 16
-    x = stam.set_bnd2d(b, jnp.asarray(rng.normal(0, 1, (n + 2, n + 2)),
-                                      jnp.float32))
-    x0 = jnp.asarray(rng.normal(0, 1, (n + 2, n + 2)), jnp.float32)
-    ref = stam.lin_solve2d(b, x, x0, 1.0, 4.0, 6)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve2d_pallas(b, x, x0, 1.0, 4.0, 6)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_step2d_pallas_solver_matches_xla_interpret():
-    """step2d with solver_backend='pallas' (the 2D smoke config path)
-    must be bit-compatible with the XLA solver loop."""
-    from jax.experimental.pallas import tpu as pltpu
-    cfg = stam.StamConfig(n=32, dt=0.1, diff=1e-5, visc=1e-5,
-                          jacobi_iters=8)
-    s = stam.make_grid2d(cfg)
-    src = jnp.zeros((34, 34), jnp.float32).at[12:18, 4:8].set(5.0)
-    sources = {"dens": src, "fv": jnp.zeros_like(src).at[12:18, 4:8]
-               .set(2.0)}
-    ref = s
-    for _ in range(3):
-        ref = stam.step2d(ref, cfg, sources)
-    cfgp = cfg.replace(solver_backend="pallas")
-    got = s
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(3):
-            got = stam.step2d(got, cfgp, sources)
-    for f in ("u", "v", "dens"):
-        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
-                                      np.asarray(getattr(ref, f)), f)
-
-
-@pytest.mark.parametrize("forcing", [False, True])
-def test_step2d_whole_matches_multicall_interpret(forcing):
-    """The fused whole-2D-step kernel must be bit-identical to the
-    multi-call step2d (XLA solver + stencil advect) on the same
-    config, including buoyancy/vorticity forcing and temp diffusion."""
-    from jax.experimental.pallas import tpu as pltpu
-    kw = dict(buoyancy_alpha=0.04, buoyancy_beta=0.9,
-              vorticity_eps=1.5, temp_diff=2e-5) if forcing else {}
-    cfg = stam.StamConfig(n=32, dt=0.1, diff=1e-5, visc=1e-5,
-                          jacobi_iters=8, advect_mode="stencil", **kw)
-    s = stam.make_grid2d(cfg)
-    # positive background dens/temp: diffusing a localized source on a
-    # zero background drives the far-field Jacobi products subnormal,
-    # where XLA:CPU FMA-contraction of the two (structurally
-    # different) graphs differs at ~1e-32 — physically void, but it
-    # breaks assert_array_equal
-    s = s.replace(dens=jnp.full_like(s.dens, 0.1),
-                  temp=jnp.full_like(s.temp, 0.2))
-    src = jnp.zeros((34, 34), jnp.float32).at[12:18, 4:8].set(5.0)
-    sources = {"dens": src,
-               "fv": jnp.zeros_like(src).at[12:18, 4:8].set(2.0),
-               "temp": jnp.zeros_like(src).at[12:18, 4:8].set(1.0)}
-    # jit BOTH paths: XLA:CPU fuses multiply-add chains into FMAs
-    # inside any jit scope (incl. the interpret-mode kernel body), so
-    # an eager dense reference differs by ~1e-8; jitted-vs-jitted the
-    # contraction decisions match and agreement is bit-exact
-    ref = s
-    step_ref = jax.jit(lambda st: stam.step2d(st, cfg, sources))
-    for _ in range(3):
-        ref = step_ref(ref)
-    cfgp = cfg.replace(solver_backend="pallas")
-    step_got = jax.jit(lambda st: stam.step2d(st, cfgp, sources))
-    got = s
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(3):
-            got = step_got(got)
-    for f in ("u", "v", "dens", "temp"):
-        # 1-ulp tolerance: the whole-step multiply-add chains sit in a
-        # structurally different graph than the dense slice-assign
-        # reference, and XLA:CPU's FMA-contraction choice differs on
-        # isolated elements (~0.1% of cells at rel ~7e-8).  The stage
-        # math itself is op-order exact: each stage compared eagerly
-        # against its dense twin is bit-identical (and the solve
-        # kernel asserts bit equality in
-        # test_lin_solve2d_pallas_matches_dense_interpret).
-        np.testing.assert_allclose(np.asarray(getattr(got, f)),
-                                   np.asarray(getattr(ref, f)),
-                                   rtol=3e-7, atol=1e-8, err_msg=f)
-
-
-@pytest.mark.parametrize("ty", [8, 16])
-def test_forcing_pallas_ytiled_interpret(ty):
-    """y-tiled forcing windows (hy=8 halo — sublane DMA offsets/sizes
-    must be 8-aligned on real TPUs, so ty must be a multiple of 8 and
-    the halo rounds up from the stencil's 2 — plus dynamic y-face
-    rows) must be bit-compatible with the full-y pallas path; a tall-y
-    box keeps the grids tiny elsewhere, and ty=8 leaves clamped
-    windows."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import forcing3d_pallas
-    rng = np.random.default_rng(6)
-    n = 12
-    cfg = stam.StamConfig(n=n, dt=0.02, vorticity_eps=3.0,
-                          buoyancy_alpha=0.05, buoyancy_beta=1.0,
-                          ambient_temp=0.2)
-    shape = (n + 2, 50, n + 2)
-    u = stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    d = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-    t = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-    args = (u, v, w, d, t, float(cfg.dt), 1.0 / n, cfg.vorticity_eps,
-            cfg.buoyancy_alpha, cfg.buoyancy_beta, cfg.ambient_temp)
-    with pltpu.force_tpu_interpret_mode():
-        ref = forcing3d_pallas(*args, tx=4)
-        got = forcing3d_pallas(*args, tx=4, ty=ty)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-
-
-@pytest.mark.parametrize("b", [0, 1, 3])
-@pytest.mark.parametrize("fuse,pipeline", [(1, True), (2, True),
-                                           (2, False)])
-def test_packed_rb_solver_matches_dense_interpret(rand3d, b, fuse,
-                                                  pipeline):
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    x, x0 = rand3d
-    x = stam.set_bnd3d(b, x)
-    ref = stam.lin_solve3d(b, x, x0, 1.0, 6.0, 4, red_black=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_rb_packed(b, x, x0, 1.0, 6.0, 4, tx=4,
-                                    fuse=fuse, pipeline=pipeline)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-@pytest.mark.parametrize("b", [0, 1])
-def test_packed_rb_solver_serial_deepfuse_interpret(b):
-    """The single-slot fuse=4 window (rb_packed_plan's large-plane
-    fallback, picked at 512^3) needs an x extent that hosts its
-    halo=8: a 32^3 grid (vs the fixture's 14^3) hosts the p=24
-    window."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-
-    rng = np.random.default_rng(3)
-    shape = (34, 34, 34)
-    x = jnp.asarray(rng.normal(0, 1, shape), jnp.float32)
-    x0 = jnp.asarray(rng.normal(0, 1, shape), jnp.float32)
-    x = stam.set_bnd3d(b, x)
-    ref = stam.lin_solve3d(b, x, x0, 1.0, 6.0, 4, red_black=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_rb_packed(b, x, x0, 1.0, 6.0, 4, tx=8,
-                                    fuse=4, pipeline=False)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-@pytest.mark.parametrize("ty", [8, 16])
-def test_div_gradsub_ytiled_interpret(ty):
-    """y-tiled divergence and gradient-subtraction windows must be
-    bit-compatible with the full-y pallas paths (tall-y box; ty=8
-    leaves clamped windows)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import (div3d_pallas,
-                                               gradsub3d_pallas)
-    rng = np.random.default_rng(9)
-    shape = (14, 50, 14)
-    u = stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    p_ = stam.set_bnd3d(0, jnp.asarray(rng.normal(0, 0.4, shape),
-                                       jnp.float32))
-    with pltpu.force_tpu_interpret_mode():
-        dref = div3d_pallas(u, v, w, tx=4)
-        dgot = div3d_pallas(u, v, w, tx=4, ty=ty)
-        gref = gradsub3d_pallas(p_, u, v, w, tx=4)
-        ggot = gradsub3d_pallas(p_, u, v, w, tx=4, ty=ty)
-    np.testing.assert_array_equal(np.asarray(dgot), np.asarray(dref))
-    for a, b in zip(gref, ggot):
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-
-
-@pytest.mark.parametrize("self_advect", [True, False])
-def test_advect_ytiled_interpret(self_advect):
-    """y-tiled advection windows must be bit-compatible with the
-    full-y pallas path (tall-y box, clamped windows at ty=8)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import advect3d_multi_pallas
-    rng = np.random.default_rng(11)
-    shape = (14, 50, 14)
-    u = stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    v = stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    w = stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 0.4, shape),
-                                      jnp.float32))
-    if self_advect:
-        fields, bnds = (u, v, w), (1, 2, 3)
-    else:
-        d = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-        t = jnp.asarray(rng.uniform(0, 1, shape), jnp.float32)
-        fields, bnds = (d, t), (0, 0)
-    with pltpu.force_tpu_interpret_mode():
-        ref = advect3d_multi_pallas(fields, bnds, u, v, w, 0.6, tx=4,
-                                    self_advect=self_advect)
-        got = advect3d_multi_pallas(fields, bnds, u, v, w, 0.6, tx=4,
-                                    self_advect=self_advect, ty=8)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-
-
-@pytest.mark.parametrize("b", [0, 3])
-@pytest.mark.parametrize("ty,fuse,pipeline", [(8, 1, True), (8, 2, True),
-                                              (8, 2, False)])
-def test_packed_rb_solver_ytiled_interpret(b, ty, fuse, pipeline):
-    """(x, packed-y)-tiled windows (_stream_tiles2d + dynamic y-face
-    fix) must stay bit-compatible with the full-y packed solver (which
-    the dense-equivalence tests pin).  ty must be a multiple of 8 and
-    the y halo rounds up to 8 (real-TPU sublane DMA alignment), so a
-    tall-y box provides enough packed rows for clamped windows while
-    x/z stay tiny."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    shape = (18, 50, 18)
-    x = jax.random.normal(jax.random.PRNGKey(3), shape, jnp.float32)
-    x0 = jax.random.normal(jax.random.PRNGKey(4), shape, jnp.float32)
-    x = stam.set_bnd3d(b, x)
-    with pltpu.force_tpu_interpret_mode():
-        ref = lin_solve3d_rb_packed(b, x, x0, 1.0, 6.0, 4, tx=4,
-                                    fuse=fuse, pipeline=pipeline)
-        got = lin_solve3d_rb_packed(b, x, x0, 1.0, 6.0, 4, tx=4,
-                                    fuse=fuse, pipeline=pipeline, ty=ty)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_packed_rb_solver_ytiled_even_face_interpret():
-    """Even y_hi (odd y extent): the hi-face fix sources the row BELOW
-    the face (the other parity branch of _rb_face_fix_y_dyn), and
-    non-dividing y-tiles exercise the clamped last window."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    shape = (18, 49, 18)  # y_hi = 48, even
-    x = jax.random.normal(jax.random.PRNGKey(3), shape, jnp.float32)
-    x0 = jax.random.normal(jax.random.PRNGKey(4), shape, jnp.float32)
-    x = stam.set_bnd3d(0, x)
-    with pltpu.force_tpu_interpret_mode():
-        ref = lin_solve3d_rb_packed(0, x, x0, 1.0, 6.0, 4, tx=4, fuse=2)
-        got = lin_solve3d_rb_packed(0, x, x0, 1.0, 6.0, 4, tx=4, fuse=2,
-                                    ty=8)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # misaligned tiles must be rejected (real-TPU sublane DMA slices
-    # need 8-aligned offsets/sizes), not compile-failed downstream
-    with pytest.raises(ValueError, match="multiple of 8"):
-        lin_solve3d_rb_packed(0, x, x0, 1.0, 6.0, 4, tx=4, fuse=1, ty=4)
-    # a window that exceeds the packed rows must be rejected, not wrong
-    short = (18, 20, 18)
-    xs = jax.random.normal(jax.random.PRNGKey(5), short, jnp.float32)
-    with pytest.raises(ValueError, match="y tile window"):
-        lin_solve3d_rb_packed(0, xs, xs, 1.0, 6.0, 4, tx=4, fuse=1,
-                              ty=8)
-
-
-def test_packed_rb_solver_single_tile_interpret(rand3d):
-    """Whole-array window: the tile is both first and last."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    x, x0 = rand3d
-    x = stam.set_bnd3d(0, x)
-    ref = stam.lin_solve3d(0, x, x0, 1.0, 6.0, 2, red_black=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_rb_packed(0, x, x0, 1.0, 6.0, 2,
-                                    tx=x.shape[0] - 4, fuse=1)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_pallas_solver_bf16_close_to_f32_interpret(rand3d):
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_pallas
-    x, x0 = rand3d
-    with pltpu.force_tpu_interpret_mode():
-        f32 = lin_solve3d_pallas(0, x, x0, 1.0, 6.0, 4, red_black=True,
-                                 tx=4, fuse=1)
-        bf16 = lin_solve3d_pallas(0, x, x0, 1.0, 6.0, 4, red_black=True,
-                                  tx=4, fuse=1, dtype=jnp.bfloat16)
-    assert bf16.dtype == jnp.float32
-    scale = float(jnp.abs(f32).max())
-    np.testing.assert_allclose(np.asarray(bf16), np.asarray(f32),
-                               atol=2e-2 * scale)
-
-
-def test_div_gradsub_pallas_match_dense_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import div3d_pallas, gradsub3d_pallas
-    rng = np.random.default_rng(4)
-    m = 18  # n_full = n + 2
-    u, v, w, p = (stam.set_bnd3d(b, jnp.asarray(
-        rng.normal(0, 1, (m,) * 3), jnp.float32))
-        for b in (1, 2, 3, 0))
-    div_ref = stam.set_bnd3d(0, jnp.zeros_like(u).at[1:-1, 1:-1, 1:-1]
-                             .set(stam.divergence3d(u, v, w)))
-    n = m - 2
-    h = 1.0 / n
-    u_ref = stam.set_bnd3d(1, u.at[1:-1, 1:-1, 1:-1].add(
-        -0.5 * (p[2:, 1:-1, 1:-1] - p[:-2, 1:-1, 1:-1]) / h))
-    v_ref = stam.set_bnd3d(2, v.at[1:-1, 1:-1, 1:-1].add(
-        -0.5 * (p[1:-1, 2:, 1:-1] - p[1:-1, :-2, 1:-1]) / h))
-    w_ref = stam.set_bnd3d(3, w.at[1:-1, 1:-1, 1:-1].add(
-        -0.5 * (p[1:-1, 1:-1, 2:] - p[1:-1, 1:-1, :-2]) / h))
-    with pltpu.force_tpu_interpret_mode():
-        div = div3d_pallas(u, v, w, tx=4)
-        uo, vo, wo = gradsub3d_pallas(p, u, v, w, tx=4)
-    np.testing.assert_array_equal(np.asarray(div), np.asarray(div_ref))
-    for a, b in ((u_ref, uo), (v_ref, vo), (w_ref, wo)):
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-
-
 def test_sph_force_kernel_matches_xla_interpret():
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids import binning
     from tpufluids.config import BASE_CONFIG
     from tpufluids.forces import compute_forces
     from tpufluids.scenes import random_blob
-    from tpufluids.sph_pallas import base_forces_pallas
+    from tpufluids.sph_triton import base_forces
     cfg = BASE_CONFIG.replace(max_per_cell=32, grid_size=8, cell_size=0.25)
     state = random_blob(150, seed=9, cfg=cfg, span=0.6, boundary_frac=0.2)
     ss, bt = binning.sort_by_cell(state, cfg)
     ref = compute_forces(ss, bt, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        sw, dp, ovf = base_forces_pallas(ss, bt, cfg)
-    assert int(ovf) == 0
+    sw, dp = base_forces(ss, bt, cfg, interpret=True)
     np.testing.assert_allclose(np.asarray(sw), np.asarray(ref.sum_w),
                                rtol=1e-4, atol=1e-4)
     scale = max(1.0, float(np.abs(np.asarray(ref.dpress)).max()))
@@ -600,90 +74,7 @@ def test_sph_force_kernel_matches_xla_interpret():
                                rtol=1e-4, atol=1e-5 * scale)
 
 
-def test_sph_force_kernel_home_chunk_bitcompat_interpret():
-    """h_chunk mode (static home-lane chunks + cond skip) is bitwise
-    identical to the whole-cap tiles: same per-lane op order, chunks
-    only re-slice the lanes."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids import binning
-    from tpufluids.config import BASE_CONFIG
-    from tpufluids.scenes import random_blob
-    from tpufluids.sph_pallas import base_forces_pallas
-    cfg = BASE_CONFIG.replace(max_per_cell=32, grid_size=8, cell_size=0.25)
-    state = random_blob(150, seed=9, cfg=cfg, span=0.6, boundary_frac=0.2)
-    ss, bt = binning.sort_by_cell(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        sw0, dp0, ovf0 = base_forces_pallas(ss, bt, cfg, b=192, w_cap=192,
-                                            w_chunk=64)
-        sw1, dp1, ovf1 = base_forces_pallas(ss, bt, cfg, b=192, w_cap=192,
-                                            w_chunk=64, h_chunk=64)
-        # h_chunk that does not divide b: b is rounded up (192 -> 256)
-        sw2, dp2, ovf2 = base_forces_pallas(ss, bt, cfg, b=192, w_cap=192,
-                                            w_chunk=64, h_chunk=128)
-    assert int(ovf0) == int(ovf1) == int(ovf2) == 0
-    np.testing.assert_array_equal(np.asarray(sw1), np.asarray(sw0))
-    np.testing.assert_array_equal(np.asarray(dp1), np.asarray(dp0))
-    np.testing.assert_array_equal(np.asarray(sw2), np.asarray(sw0))
-    np.testing.assert_array_equal(np.asarray(dp2), np.asarray(dp0))
-
-
-def test_sph_force_kernel_zband_skip_bitcompat_interpret():
-    """z_skip (skip pair tiles whose z-cell bands cannot be
-    stencil-adjacent) is bitwise identical to the plain h_chunk path:
-    the skipped tiles would have where-masked to exact zeros — the
-    same zeros the cond's false branch supplies.  Uses a tall dense
-    blob so columns span many z cells and tiles DO get skipped."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids import binning
-    from tpufluids.config import BASE_CONFIG
-    from tpufluids.scenes import random_blob
-    from tpufluids.sph_pallas import base_forces_pallas
-    cfg = BASE_CONFIG.replace(max_per_cell=64, grid_size=8,
-                              cell_size=0.25)
-    state = random_blob(600, seed=11, cfg=cfg, span=0.9,
-                        boundary_frac=0.1)
-    ss, bt = binning.sort_by_cell(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        sw0, dp0, ovf0 = base_forces_pallas(ss, bt, cfg, b=256,
-                                            w_cap=256, w_chunk=64,
-                                            h_chunk=64)
-        sw1, dp1, ovf1 = base_forces_pallas(ss, bt, cfg, b=256,
-                                            w_cap=256, w_chunk=64,
-                                            h_chunk=64, z_skip=True)
-        sw2, dp2, ovf2 = base_forces_pallas(ss, bt, cfg, b=256,
-                                            w_cap=256, w_chunk=64,
-                                            h_chunk=128, z_skip=True)
-    assert int(ovf0) == int(ovf1) == int(ovf2) == 0
-    np.testing.assert_array_equal(np.asarray(sw1), np.asarray(sw0))
-    np.testing.assert_array_equal(np.asarray(dp1), np.asarray(dp0))
-    np.testing.assert_array_equal(np.asarray(sw2), np.asarray(sw0))
-    np.testing.assert_array_equal(np.asarray(dp2), np.asarray(dp0))
-
-
-def test_sph_rowblock_zband_skip_bitcompat_interpret():
-    """The rowblock family's z-band candidate-chunk skip matches the
-    plain sweep exactly (same where-masked pair math; the cond only
-    skips chunks whose every pair the |czi-czj|<=1 gate zeroes)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids import binning
-    from tpufluids.config import BASE_CONFIG
-    from tpufluids.scenes import random_blob
-    from tpufluids.sph_pallas import base_forces_rowblock
-    cfg = BASE_CONFIG.replace(max_per_cell=64, grid_size=8,
-                              cell_size=0.25)
-    state = random_blob(600, seed=12, cfg=cfg, span=0.9,
-                        boundary_frac=0.1)
-    ss, bt = binning.sort_by_cell(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        sw0, dp0, _ = base_forces_rowblock(ss, bt, cfg, w_chunk=32)
-        sw1, dp1, _ = base_forces_rowblock(ss, bt, cfg, w_chunk=32,
-                                           z_skip=True)
-    np.testing.assert_array_equal(np.asarray(sw1), np.asarray(sw0))
-    np.testing.assert_array_equal(np.asarray(dp1), np.asarray(dp0))
-
-
 def test_sph_step_with_pallas_backend_interpret():
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids.config import BASE_CONFIG
     from tpufluids.oracle import state_to_dict
     from tpufluids.scenes import random_blob
@@ -691,8 +82,7 @@ def test_sph_step_with_pallas_backend_interpret():
     cfg = BASE_CONFIG.replace(max_per_cell=32, grid_size=8, cell_size=0.25)
     state = random_blob(100, seed=10, cfg=cfg, span=0.6)
     ref, _ = sph_step(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        got, m = sph_step(state, cfg.replace(force_backend="pallas"))
+    got, m = sph_step(state, cfg.replace(force_backend="interpret"))
     rd = state_to_dict(ref)
     gd = state_to_dict(got)
     ri, gi = np.argsort(rd["pid"]), np.argsort(gd["pid"])
@@ -703,11 +93,10 @@ def test_sph_step_with_pallas_backend_interpret():
 
 def test_unidyn_force_kernel_matches_xla_interpret():
     import sys
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids import binning
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.forces import compute_forces
-    from tpufluids.sph_pallas import unidyn_forces_pallas
+    from tpufluids.sph_triton import unidyn_forces
     sys.path.insert(0, "tests")
     from test_forces_vs_oracle import mixed_blob
     cfg = UNIDYN_CONFIG.replace(max_per_cell=32, grid_size=8,
@@ -715,9 +104,7 @@ def test_unidyn_force_kernel_matches_xla_interpret():
     state = mixed_blob(150, 7, cfg, span=0.5)
     ss, bt = binning.sort_by_cell(state, cfg)
     ref = compute_forces(ss, bt, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        got = unidyn_forces_pallas(ss, bt, cfg)
-    assert int(got["overflow"]) == 0
+    got = unidyn_forces(ss, bt, cfg, interpret=True)
     for name, a in (("sum_w", ref.sum_w), ("dpress", ref.dpress),
                     ("diffusion", ref.diffusion),
                     ("vel_grad", ref.vel_grad),
@@ -743,7 +130,6 @@ def test_unidyn_force_kernel_matches_xla_interpret():
 
 def test_unidyn_step_with_pallas_backend_interpret():
     import sys
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.oracle import state_to_dict
     from tpufluids.step import sph_step
@@ -753,8 +139,7 @@ def test_unidyn_step_with_pallas_backend_interpret():
                                 cell_size=0.25)
     state = mixed_blob(120, 11, cfg, span=0.5)
     ref, _ = sph_step(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        got, m = sph_step(state, cfg.replace(force_backend="pallas"))
+    got, m = sph_step(state, cfg.replace(force_backend="interpret"))
     rd = state_to_dict(ref)
     gd = state_to_dict(got)
     ri, gi = np.argsort(rd["pid"]), np.argsort(gd["pid"])
@@ -764,159 +149,16 @@ def test_unidyn_step_with_pallas_backend_interpret():
                                    atol=1e-5 * scale, err_msg=f)
 
 
-def test_rb_packed_plan_degrades_with_grid_size():
-    from tpufluids.grid.pallas_kernels import rb_packed_plan
-    # 256^3: deep fuse, pipelined, useful tile
-    tx, fuse, pipe = rb_packed_plan((258, 258, 258), 20)
-    assert fuse == 4 and pipe and tx >= 16
-    # 512^3: planes are 4x larger; the pipelined fuse=4 window does not
-    # fit, and the measured-best fallback is the single-slot deep-fuse
-    # window (83.2 ms vs 99.2 for pipelined tx=8 fuse=2,
-    # verify/bench_rb512_plans.py)
-    tx5, fuse5, pipe5 = rb_packed_plan((514, 514, 514), 20)
-    assert fuse5 == 4 and not pipe5 and tx5 >= 12
-    assert (tx5 + 4 * fuse5) <= 514
-    # small grids: whole-solve mode (tx=n_full, fuse=iters signals the
-    # single-call resident-in-VMEM kernel)
-    txt, fuset, pipet = rb_packed_plan((18, 18, 18), 4)
-    assert (txt, fuset, pipet) == (18, 4, False)
-    tx6, fuse6, pipe6 = rb_packed_plan((130, 130, 130), 20)
-    assert (tx6, fuse6, pipe6) == (130, 20, False)
-
-
-@pytest.mark.parametrize("b", [0, 1, 3])
-@pytest.mark.parametrize("n", [14, 15])
-def test_packed_rb_solver_whole_matches_dense_interpret(b, n):
-    """Whole-solve-in-VMEM mode (tx=n_full, fuse=iters): the full
-    iteration loop in one kernel call must stay bit-compatible with the
-    dense red-black solver on both y_hi parities."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    x = jax.random.normal(jax.random.PRNGKey(5), (n + 2,) * 3,
-                          jnp.float32)
-    x0 = jax.random.normal(jax.random.PRNGKey(6), (n + 2,) * 3,
-                           jnp.float32)
-    x = stam.set_bnd3d(b, x)
-    ref = stam.lin_solve3d(b, x, x0, 1.0, 6.0, 4, red_black=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_rb_packed(b, x, x0, 1.0, 6.0, 4, tx=n + 2,
-                                    fuse=4)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_packed_rb_solver_whole_x_zero_matches_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    n = 14
-    x0 = jax.random.normal(jax.random.PRNGKey(7), (n + 2,) * 3,
-                           jnp.float32)
-    z = jnp.zeros_like(x0)
-    ref = stam.lin_solve3d(0, z, x0, 1.0, 6.0, 4, red_black=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = lin_solve3d_rb_packed(0, z, x0, 1.0, 6.0, 4, tx=n + 2,
-                                    fuse=4, x_zero=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_packed_rb_solver_x_zero_matches(rand3d):
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import lin_solve3d_rb_packed
-    _, x0 = rand3d
-    z = jnp.zeros_like(x0)
-    with pltpu.force_tpu_interpret_mode():
-        a = lin_solve3d_rb_packed(0, z, x0, 1.0, 6.0, 4, tx=4, fuse=2)
-        b = lin_solve3d_rb_packed(0, z, x0, 1.0, 6.0, 4, tx=4, fuse=2,
-                                  x_zero=True)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_advect_self_matches_general_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import advect3d_multi_pallas
-    rng = np.random.default_rng(9)
-    n = 14
-    cfg = stam.StamConfig(n=n, dt=0.03)
-    shape = (n + 2,) * 3
-    u, v, w = (stam.set_bnd3d(b, jnp.asarray(
-        rng.uniform(-0.9, 0.9, shape), jnp.float32)) for b in (1, 2, 3))
-    with pltpu.force_tpu_interpret_mode():
-        gen = advect3d_multi_pallas((u, v, w), (1, 2, 3), u, v, w,
-                                    float(cfg.dt * n), tx=4)
-        slf = advect3d_multi_pallas((u, v, w), (1, 2, 3), u, v, w,
-                                    float(cfg.dt * n), tx=4,
-                                    self_advect=True)
-    for a, b in zip(gen, slf):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_advect_unpipelined_matches_stencil_interpret():
-    """The single-slot streaming branch (chosen on very large planes
-    where double-buffered windows exceed VMEM) against the dense
-    stencil reference."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpufluids.grid.pallas_kernels import advect3d_multi_pallas
-    rng = np.random.default_rng(11)
-    n = 14
-    cfg = stam.StamConfig(n=n, dt=0.03)
-    shape = (n + 2,) * 3
-    u, v, w = (stam.set_bnd3d(b, jnp.asarray(
-        rng.uniform(-0.9, 0.9, shape), jnp.float32)) for b in (1, 2, 3))
-    d = stam.set_bnd3d(0, jnp.asarray(rng.uniform(0, 1, shape),
-                                      jnp.float32))
-    refs = [stam.advect3d_stencil(b, q, u, v, w, cfg)
-            for b, q in ((0, d), (1, u))]
-    with pltpu.force_tpu_interpret_mode():
-        outs = advect3d_multi_pallas((d, u), (0, 1), u, v, w,
-                                     float(cfg.dt * n), tx=4,
-                                     pipeline=False)
-    for r, o in zip(refs, outs):
-        np.testing.assert_allclose(np.asarray(o), np.asarray(r), atol=3e-6)
-
-
-def test_step3d_padded_flow_matches_dense_interpret():
-    """The pad-once step (fields padded at entry, threaded through all
-    kernels via true_extents) against the dense XLA step."""
-    from jax.experimental.pallas import tpu as pltpu
-    rng = np.random.default_rng(12)
-    n = 14
-    kw = dict(n=n, dt=0.02, jacobi_iters=4, red_black=True,
-              advect_mode="stencil", buoyancy_beta=0.5,
-              buoyancy_alpha=0.05, vorticity_eps=1.0)
-    cfg_p = stam.StamConfig(solver_backend="pallas", **kw)
-    cfg_x = stam.StamConfig(solver_backend="xla", **kw)
-    shape = (n + 2,) * 3
-    s = stam.GridState3D(
-        u=stam.set_bnd3d(1, jnp.asarray(rng.normal(0, 0.3, shape),
-                                        jnp.float32)),
-        v=stam.set_bnd3d(2, jnp.asarray(rng.normal(0, 0.3, shape),
-                                        jnp.float32)),
-        w=stam.set_bnd3d(3, jnp.asarray(rng.normal(0, 0.3, shape),
-                                        jnp.float32)),
-        dens=stam.set_bnd3d(0, jnp.asarray(rng.uniform(0, 1, shape),
-                                           jnp.float32)),
-        temp=stam.set_bnd3d(0, jnp.asarray(rng.uniform(0, 1, shape),
-                                           jnp.float32)))
-    ref, res_ref = stam.step3d(s, cfg_x, with_residual=True)
-    with pltpu.force_tpu_interpret_mode():
-        got, res_got = stam.step3d(s, cfg_p, with_residual=True)
-    for f in ("u", "v", "w", "dens", "temp"):
-        np.testing.assert_allclose(np.asarray(getattr(got, f)),
-                                   np.asarray(getattr(ref, f)),
-                                   atol=5e-6, err_msg=f)
-    np.testing.assert_allclose(float(res_got), float(res_ref), atol=1e-5)
-
-
 def test_unidyn_subbin_pallas_matches_oracle_interpret():
-    """The octant sub-bin predicate inside the Pallas column kernels
-    (reference DEFAULT unidyn semantics, FluidGPU-unidyn.cu:181-192,
+    """The octant sub-bin predicate inside the kernels (reference
+    DEFAULT unidyn semantics, FluidGPU-unidyn.cu:181-192,
     579-583) matches both the XLA subbin path and the O(N^2) oracle."""
     import sys
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids import binning
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.forces import compute_forces
     from tpufluids.oracle import accumulate, state_to_dict
-    from tpufluids.sph_pallas import unidyn_forces_pallas
+    from tpufluids.sph_triton import unidyn_forces
     sys.path.insert(0, "tests")
     from test_forces_vs_oracle import mixed_blob
     # default unidyn geometry (cell 0.12 ~ the 0.12 support) so the
@@ -929,9 +171,7 @@ def test_unidyn_subbin_pallas_matches_oracle_interpret():
     full = compute_forces(ss, bt, cfg, subbin_parity=False)
     # the mode must actually bite on this blob
     assert not np.allclose(np.asarray(ref.sum_w), np.asarray(full.sum_w))
-    with pltpu.force_tpu_interpret_mode():
-        got = unidyn_forces_pallas(ss, bt, cfg, subbin_threshold=6)
-    assert int(got["overflow"]) == 0
+    got = unidyn_forces(ss, bt, cfg, subbin_threshold=6, interpret=True)
     for name, a in (("sum_w", ref.sum_w), ("dpress", ref.dpress),
                     ("diffusion", ref.diffusion),
                     ("vel_grad", ref.vel_grad),
@@ -957,22 +197,19 @@ def test_unidyn_subbin_pallas_matches_oracle_interpret():
 
 
 def test_rowblock_base_matches_xla_interpret():
-    """Row-block force kernel (128-sorted-row home blocks, per-pair
-    cell masks, no capacity cap) vs the XLA pass."""
-    from jax.experimental.pallas import tpu as pltpu
+    """The kernel's home blocks (consecutive sorted rows, per-pair cell
+    masks, no capacity cap) vs the XLA pass, in sorted and pool order."""
     from tpufluids import binning
     from tpufluids.config import BASE_CONFIG
     from tpufluids.forces import compute_forces
     from tpufluids.scenes import random_blob
-    from tpufluids.sph_pallas import base_forces_rowblock
+    from tpufluids.sph_triton import base_forces
     cfg = BASE_CONFIG.replace(max_per_cell=32, grid_size=8, cell_size=0.25)
     state = random_blob(300, seed=9, cfg=cfg, span=0.6, boundary_frac=0.2)
     ss, bt = binning.sort_by_cell(state, cfg)
     ref = compute_forces(ss, bt, cfg)
     # sorted mode
-    with pltpu.force_tpu_interpret_mode():
-        sw, dp, ovf = base_forces_rowblock(ss, bt, cfg, w_chunk=32)
-    assert int(ovf) == 0
+    sw, dp = base_forces(ss, bt, cfg, interpret=True)
     np.testing.assert_allclose(np.asarray(sw), np.asarray(ref.sum_w),
                                rtol=1e-4, atol=1e-4)
     scale = max(1.0, float(np.abs(np.asarray(ref.dpress)).max()))
@@ -981,9 +218,8 @@ def test_rowblock_base_matches_xla_interpret():
     # order mode (unsorted pool)
     from tpufluids.binning import sort_tables
     order, bt2 = sort_tables(state, cfg)
-    with pltpu.force_tpu_interpret_mode():
-        sw2, dp2, _ = base_forces_rowblock(state, bt2, cfg, order=order,
-                                           w_chunk=32)
+    sw2, dp2 = base_forces(state, bt2, cfg, order=order,
+                           interpret=True)
     # pid-match against the sorted reference
     pid_s = np.asarray(ss.pid)
     pid_o = np.asarray(state.pid)
@@ -994,23 +230,19 @@ def test_rowblock_base_matches_xla_interpret():
 
 
 def test_rowblock_unidyn_subbin_matches_xla_interpret():
-    """Row-block unidyn kernels incl. the per-pair octant predicate."""
+    """Unidyn kernels incl. the per-pair octant predicate."""
     import sys
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids import binning
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.forces import compute_forces
-    from tpufluids.sph_pallas import unidyn_forces_rowblock
+    from tpufluids.sph_triton import unidyn_forces
     sys.path.insert(0, "tests")
     from test_forces_vs_oracle import mixed_blob
     cfg = UNIDYN_CONFIG.replace(max_per_cell=64)
     state = mixed_blob(150, 7, cfg, span=0.15)
     ss, bt = binning.sort_by_cell(state, cfg)
     ref = compute_forces(ss, bt, cfg, subbin_parity=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = unidyn_forces_rowblock(ss, bt, cfg, w_chunk=32,
-                                     subbin_threshold=6)
-    assert int(got["overflow"]) == 0
+    got = unidyn_forces(ss, bt, cfg, subbin_threshold=6, interpret=True)
     for name, a in (("sum_w", ref.sum_w), ("dpress", ref.dpress),
                     ("diffusion", ref.diffusion),
                     ("vel_grad", ref.vel_grad),
@@ -1027,33 +259,16 @@ def test_rowblock_unidyn_subbin_matches_xla_interpret():
                                    err_msg=name)
 
 
-def test_kernel_family_auto_resolution():
-    """'auto' picks rowblock up to the measured crossover pool size and
-    the capped column family above it; explicit names pass through."""
-    from tpufluids.config import BASE_CONFIG
-    from tpufluids.step import ROWBLOCK_MAX_POOL, resolve_kernel_family
-    cfg = BASE_CONFIG  # pallas_kernel="auto"
-    assert cfg.pallas_kernel == "auto"
-    assert resolve_kernel_family(cfg, 8000) == "rowblock"
-    assert resolve_kernel_family(cfg, ROWBLOCK_MAX_POOL) == "rowblock"
-    assert resolve_kernel_family(cfg, ROWBLOCK_MAX_POOL + 1) == "column"
-    for name in ("rowblock", "column"):
-        c = cfg.replace(pallas_kernel=name)
-        assert resolve_kernel_family(c, 8000) == name
-        assert resolve_kernel_family(c, 10_000_000) == name
-
-
 def test_unidyn_merge_partner_matches_xla_interpret():
     """Merge-enabled pass A (FluidGPU-unidyn.cu:261-275): the in-kernel
-    nearest-eligible-partner search of BOTH Pallas families returns the
-    XLA path's partner rows exactly (sorted-state mode)."""
+    nearest-eligible-partner search returns the XLA path's partner rows
+    exactly, as sorted rows and, in pool-order mode, as pool rows."""
     import sys
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids import binning
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.forces import compute_forces
-    from tpufluids.sph_pallas import (unidyn_forces_pallas,
-                                      unidyn_forces_rowblock)
+    from tpufluids.binning import sort_tables
+    from tpufluids.sph_triton import unidyn_forces
     sys.path.insert(0, "tests")
     from test_forces_vs_oracle import mixed_blob
     cfg = UNIDYN_CONFIG.replace(max_per_cell=32, grid_size=8,
@@ -1063,20 +278,23 @@ def test_unidyn_merge_partner_matches_xla_interpret():
     ref = compute_forces(ss, bt, cfg)
     assert int((np.asarray(ref.merge_partner) >= 0).sum()) > 10, \
         "scene must exercise the partner search"
-    with pltpu.force_tpu_interpret_mode():
-        got_col = unidyn_forces_pallas(ss, bt, cfg)
-        got_rb = unidyn_forces_rowblock(ss, bt, cfg)
-    np.testing.assert_array_equal(np.asarray(got_col["merge_partner"]),
+    got = unidyn_forces(ss, bt, cfg, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got["merge_partner"]),
                                   np.asarray(ref.merge_partner))
-    np.testing.assert_array_equal(np.asarray(got_rb["merge_partner"]),
-                                  np.asarray(ref.merge_partner))
+    # pool-order mode reports partners as pool rows
+    order, bt2 = sort_tables(state, cfg)
+    got2 = unidyn_forces(state, bt2, cfg, order=order, interpret=True)
+    pool_of_sorted = np.asarray(ss.pid)      # pid == pool row here
+    want = np.full(state.capacity, -1)
+    mp = np.asarray(ref.merge_partner)
+    want[pool_of_sorted] = np.where(mp >= 0, pool_of_sorted[mp], -1)
+    np.testing.assert_array_equal(np.asarray(got2["merge_partner"]), want)
 
 
 def test_unidyn_step_merge_pallas_backend_interpret():
-    """End-to-end merge on the Pallas backend (sort_tables pool-order
+    """End-to-end merge on the kernel backend (sort_tables pool-order
     mode): mutual pairs merge identically to the XLA backend, including
     alive count and absorber masses."""
-    from jax.experimental.pallas import tpu as pltpu
     from tpufluids.config import UNIDYN_CONFIG
     from tpufluids.oracle import state_to_dict
     from tpufluids.state import make_state
@@ -1091,9 +309,8 @@ def test_unidyn_step_merge_pallas_backend_interpret():
     for _ in range(2):
         ref, rm = sph_step(ref, cfg)
     got = state
-    with pltpu.force_tpu_interpret_mode():
-        for _ in range(2):
-            got, gm = sph_step(got, cfg.replace(force_backend="pallas"))
+    for _ in range(2):
+        got, gm = sph_step(got, cfg.replace(force_backend="interpret"))
     assert int(gm.n_alive) == int(rm.n_alive) == 4
     rd, gd = state_to_dict(ref), state_to_dict(got)
     ri, gi = np.argsort(rd["pid"]), np.argsort(gd["pid"])

@@ -1,20 +1,18 @@
 """Sort-cadence amortization (cfg.sort_every > 1): the pool is
 re-sorted every K-th step and the binning tables are reused in
-between, with the Pallas kernels adding fresh per-pair xy cell masks
-(replacing the reference's every-step thrust::sort_by_key,
-solver.cu:181, at pool sizes the reference never reached — at 2M
-particles the sort+pack were 28% of the step).  CPU interpret-mode
-tests; real-TPU timing rows live in verify/bench_sph_1m.py."""
+between (replacing the reference's every-step thrust::sort_by_key,
+solver.cu:181).  The kernel backend runs under the Pallas interpreter
+here."""
 
-import jax
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
+from tpufluids import binning
 from tpufluids.config import BASE_CONFIG, UNIDYN_CONFIG
 from tpufluids.oracle import state_to_dict
 from tpufluids.scenes import random_blob
-from tpufluids.step import run_python, sph_step, use_sort_every
+from tpufluids.step import (run, run_chunk, sph_step, sph_step_stale,
+                            use_sort_every)
 
 
 def by_pid(d):
@@ -22,26 +20,24 @@ def by_pid(d):
     return {k: v[o] for k, v in d.items()}
 
 
-CFG = BASE_CONFIG.replace(force_backend="pallas", pallas_col_cap=64,
-                          max_per_cell=32)
+CFG = BASE_CONFIG.replace(force_backend="interpret", max_per_cell=32)
 
 
-@pytest.mark.parametrize("family", ["column", "rowblock"])
-def test_sort_step_matches_fresh_step(family):
+@pytest.mark.parametrize("span", [0.5, 0.7])
+def test_sort_step_matches_fresh_step(span):
     """The re-sort step of the amortized driver (sort_by_cell + stale
-    step with the fresh-xy masks) is numerically identical to the
-    every-step path: on a just-sorted table the added masks are no-ops
-    by window construction."""
-    from tpufluids.step import _jitted_sort_step, _jitted_sph_step
+    step) matches the every-step path: on a just-sorted table the
+    sort-time cells ARE the current cells."""
+    import jax
 
-    cfg = CFG.replace(pallas_kernel=family)
-    state = random_blob(150, seed=5, span=0.7)
-    with pltpu.force_tpu_interpret_mode():
-        # jitted reference (eager-vs-jit fusion differs by ulps in the
-        # EOS's ^7 — the force accumulations themselves are bitwise
-        # equal between the two paths)
-        ref, _ = _jitted_sph_step(state, cfg)
-        out, bt, _ = _jitted_sort_step(state, cfg)
+    state = random_blob(150, seed=5, span=span)
+    ref, _ = jax.jit(lambda s: sph_step(s, CFG))(state)
+
+    def sort_step(s):
+        s, bt = binning.sort_by_cell(s, CFG, runs=False)
+        return sph_step_stale(s, bt, CFG)
+
+    out, _ = jax.jit(sort_step)(state)
     refd = by_pid(state_to_dict(ref))
     outd = by_pid(state_to_dict(out))
     np.testing.assert_array_equal(outd["pid"], refd["pid"])
@@ -50,18 +46,17 @@ def test_sort_step_matches_fresh_step(family):
                                    atol=1e-7, err_msg=f)
 
 
-@pytest.mark.parametrize("family", ["column", "rowblock"])
-def test_sort_every_k_tracks_every_step(family):
-    """9 steps at sort_every=3 stay within tolerance of every-step
+@pytest.mark.parametrize("k", [3, 4])
+def test_sort_every_k_tracks_every_step(k):
+    """9 steps at sort_every=k stay within tolerance of every-step
     sorting: between sorts only pairs whose endpoints drifted a full
-    cell apart in x/y can differ, and those sit in the outer-support
-    tail (W -> 0 at the support edge)."""
-    cfg1 = CFG.replace(pallas_kernel=family)
-    cfgk = cfg1.replace(sort_every=3)
+    cell apart can differ, and those sit in the outer-support tail
+    (W -> 0 at the support edge)."""
+    cfgk = CFG.replace(sort_every=k)
     state = random_blob(150, seed=11, span=0.7)
-    with pltpu.force_tpu_interpret_mode():
-        ref, _ = run_python(state, cfg1, 9)
-        out, _ = run_python(state, cfgk, 9)
+    ref, _ = run_chunk(state, CFG, 9)
+    out, m = run(state, cfgk, 9)
+    assert m.n_alive.shape == (9,)
     refd = by_pid(state_to_dict(ref))
     outd = by_pid(state_to_dict(out))
     np.testing.assert_array_equal(outd["pid"], refd["pid"])
@@ -74,8 +69,8 @@ def test_sort_every_k_tracks_every_step(family):
 def test_sort_every_rejects_unidyn_and_xla():
     with pytest.raises(ValueError, match="base variant"):
         use_sort_every(UNIDYN_CONFIG.replace(sort_every=4,
-                                             force_backend="pallas"))
-    with pytest.raises(ValueError, match="Pallas"):
+                                             force_backend="interpret"))
+    with pytest.raises(ValueError, match="kernel"):
         use_sort_every(BASE_CONFIG.replace(sort_every=4,
                                            force_backend="xla"))
     assert not use_sort_every(BASE_CONFIG)

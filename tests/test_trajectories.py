@@ -1,9 +1,8 @@
 """Short-horizon trajectory regression guards (CPU, XLA backend).
 
-The full reference workloads (solver.cu:19 t<4000;
-solver-unidyn.cu:23 t<1450) run on TPU via
-verify/run_reference_workloads.py, which asserts end-state envelopes.
-These tests guard the same physics at CI cost: a few dozen steps of
+The full reference workloads run solver.cu:19 t<4000 and
+solver-unidyn.cu:23 t<1450.  These tests guard the same physics at CI
+cost: a few dozen steps of
 each scene with quantitative anchors measured from the deterministic
 CPU path (gather sums make runs bit-reproducible per backend, so the
 anchors are tight; tolerances absorb cross-version XLA drift)."""

@@ -1,4 +1,4 @@
-"""tpufluids — a TPU-native fluid simulation framework.
+"""tpufluids — a fluid simulation framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 robbergen/FluidSolverGPU (CUDA SPH solver, reference mounted at
@@ -11,13 +11,13 @@ robbergen/FluidSolverGPU (CUDA SPH solver, reference mounted at
   particle merge/split — reference FluidGPU-unidyn.cu / solver-unidyn.cu
 * multi-device spatial domain decomposition with halo exchange
   (reference: host-staged 2-GPU memcpy, solver-unidyn.cu:396-470;
-  here: shard_map + ppermute over ICI)
+  here: shard_map + ppermute between devices)
 * legacy-VTK snapshot export (reference: visit_writer.cpp)
 * a Stam stable-fluids grid module for the BASELINE.json configs.
 
-Design is TPU-first: SoA pytree state, deterministic gather-based pair
-interactions (no atomics), whole timestep under jit/lax.scan, Pallas
-kernels on the hot stencils.
+Design: SoA pytree state, deterministic gathered pair sums (no
+atomics), whole timestep under jit/lax.scan, and on a GPU the SPH pair
+pass as a Pallas (Triton) cell-list kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Cell-grid neighbor binning — TPU-native replacement for the reference's
+"""Cell-grid neighbor binning — the replacement for the reference's
 sort/bin/prefix machinery.
 
 The reference pipeline per step is: thrust::sort_by_key on cell ids
@@ -20,8 +20,9 @@ Here the same structure becomes dense, static-shape tensor ops:
    any (x+dx, y+dy) column are contiguous both in cell-id space and in
    the sorted particle array.  The 27-cell stencil (FluidGPU.cu:124-126)
    is therefore 9 contiguous index ranges of at most 3*max_per_cell
-   slots each — a gather pattern that XLA handles well and that maps
-   directly onto dynamic-slice DMA in a Pallas kernel.
+   slots each — a gather pattern that XLA handles well, and the
+   contiguous row ranges the pair kernel (tpufluids/sph_triton.py)
+   streams.
 
 Capacity overflow (a run holding more than 3*max_per_cell particles) is
 deterministic — the highest sorted ranks are dropped — and surfaced as a
@@ -104,11 +105,10 @@ def permute_pool(state, order):
     """Apply a row permutation to every pool array as ONE packed row
     gather: the leaves are flattened to (N, k) int32 views (bools
     widened, floats bitcast — exact round trips; int32 rather than
-    float32 as the carrier because TPU vector ops flush f32 subnormals,
-    which would zero small bitcast integer payloads), concatenated to a
-    single (N, 33) matrix, gathered once, and split back.  TPU gathers
-    pay a fixed cost per index, so one 132-byte row gather beats the
-    15 narrow per-field gathers of the naive tree_map by ~4x."""
+    float32 as the carrier because a device that flushes f32 subnormals
+    would zero small bitcast integer payloads), concatenated to a
+    single (N, 33) matrix, gathered once, and split back: one row
+    gather instead of 15 narrow per-field gathers."""
     leaves, treedef = jax.tree_util.tree_flatten(state)
     n = leaves[0].shape[0]
     cols, metas = [], []
@@ -143,8 +143,8 @@ def sort_by_cell(state: ParticleState, cfg: SPHConfig,
     """Reorder the whole particle pool by cell id (the reference's
     thrust::sort_by_key over the AoS array, solver.cu:181) and build the
     run tables.  ``runs=False`` skips the per-particle neighbor-run
-    tables (9 gather passes) — the Pallas force backend derives its
-    windows from ``cell_start`` alone."""
+    tables (9 gather passes) — the kernel force backend derives its
+    candidate ranges from ``cell_start`` alone."""
     cid, _ = cell_id(state.pos, state.alive, cfg, grid)
     n = cid.shape[0]
     num_cells = (grid or full_grid(cfg)).num_cells
@@ -166,14 +166,14 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
                 grid: Optional[GridSpec] = None):
     """Sorted-order binning tables WITHOUT permuting the pool.
 
-    The Pallas force path gathers its packed kernel input directly by
+    The kernel force path gathers its packed input directly by
     ``order`` (one row gather) and maps results straight back to the
     unpermuted pool — skipping the 33-column ``permute_pool`` gather
     and the post-permute cell-id recompute of ``sort_by_cell``.  The
     reference's thrust sort (solver.cu:181) reorders storage; only the
     sorted ADJACENCY is semantically needed.  Returns (order, BinTable)
     with every BinTable field in sorted order (run tables empty — this
-    path serves the Pallas backend only)."""
+    path serves the kernel backend only)."""
     grid = grid or full_grid(cfg)
     g = grid.g
     num_cells = grid.num_cells
@@ -229,9 +229,8 @@ def build_bins(state: ParticleState, cfg: SPHConfig, order=None,
 
     # cell_start[c] = first sorted index of cell c; c in [0, num_cells+1].
     # Built as histogram + exclusive cumsum: bit-identical to
-    # searchsorted(cid, arange) on the sorted ids, but ~2.3x faster on
-    # TPU (searchsorted lowers to a gather per binary-search step —
-    # 6.6 ms vs 2.8 at 64k cells / 8k particles on v5e).
+    # searchsorted(cid, arange) on the sorted ids, without a gather per
+    # binary-search step.
     counts = jnp.zeros(num_cells + 1, jnp.int32).at[cid].add(
         jnp.ones_like(cid, jnp.int32))
     cell_start = jnp.concatenate(
@@ -364,32 +363,3 @@ def octant(pos: jax.Array, cfg: SPHConfig) -> jax.Array:
     return (upper[:, 0].astype(jnp.int32)
             + 2 * upper[:, 1].astype(jnp.int32)
             + 4 * (~upper[:, 2]).astype(jnp.int32))
-
-
-def suggest_col_cap(state, cfg: SPHConfig, headroom: float = 1.25,
-                    minimum: int = 64) -> int:
-    """Pick a static ``pallas_col_cap`` for a scene: the Pallas force
-    kernels pad every (x, y) column block to the cap, so an oversized
-    cap multiplies both window DMA bytes and pair-tile arithmetic by
-    the padding ratio (measured 116 -> 15 ms/step for a uniform 32k
-    fill when dropping cap 512 -> 88, and 549 -> 269 ms at 524k when
-    dropping an overshot 936 -> 512).  Returns the smallest multiple
-    of 8 >= ``headroom`` x the current max column population
-    (particles drift, so leave room; column overflow is counted per
-    step in StepMetrics.bin_overflow — raise the cap if it ever goes
-    nonzero).
-
-    Host-side helper (concrete values, not traced): call it on the
-    initial state and bake the result into the config.
-    """
-    import numpy as np
-
-    cid, _ = cell_id(state.pos, state.alive, cfg, None)
-    g = cfg.grid_size
-    col = np.asarray(cid) // g                 # column = g consecutive cells
-    col = col[np.asarray(state.alive)]
-    col = col[col < g * g]                     # drop sentinel bin
-    occ = np.bincount(col.astype(np.int64), minlength=g * g).max() if \
-        col.size else 0
-    want = int(np.ceil(occ * headroom / 8.0) * 8)
-    return max(minimum, want)

@@ -60,7 +60,7 @@ def build_parser():
                                 "(the reference's thrust cadence, "
                                 "solver.cu:181); K > 1 amortizes the "
                                 "sort over K steps (base variant + "
-                                "Pallas backend; SPHConfig.sort_every)")
+                                "kernel backend; SPHConfig.sort_every)")
     for name in ("smoke2d", "plume3d", "grid3d", "grid3d_sharded"):
         p = sub.add_parser(name)
         _add_common(p)
@@ -74,14 +74,11 @@ def build_parser():
                                 if name == "grid3d_sharded" else
                                 ("jacobi", "multigrid", "dct")),
                        help="Poisson solver: 'dct' (exact spectral "
-                            "solve on the MXU — fastest AND most "
-                            "accurate, the recommended/bench default),"
-                            " 'jacobi' (fixed-iteration red-black "
+                            "solve by dense DCT matmuls, the bench "
+                            "default), 'jacobi' (fixed-iteration "
                             "sweeps, the reference-style scheme), "
-                            "'multigrid' (reference/correctness "
-                            "option, superseded by dct: ~10x slower "
-                            "at 256^3 with residual 4.5e-8 vs 1e-10 "
-                            "— kept for solver validation)")
+                            "'multigrid' (V-cycles; reference/"
+                            "correctness option)")
         p.add_argument("--vorticity", type=float, default=0.0)
         if name in ("plume3d", "grid3d"):
             p.add_argument("--mac", action="store_true",
@@ -90,12 +87,6 @@ def build_parser():
                                 " tolerance (tpufluids.grid.mac)")
         if name == "grid3d_sharded":
             p.add_argument("--devices", type=int, default=None)
-            p.add_argument("--backend", default="auto",
-                           choices=("auto", "xla", "pallas"),
-                           help="per-shard kernels: pallas needs "
-                                "red-black jacobi + stencil advection")
-            p.add_argument("--advect-mode", default="gather",
-                           choices=("gather", "stencil"))
     return ap
 
 
@@ -114,18 +105,6 @@ def run_sph(args):
         state = base_dam(cfg, n=args.particles or 8000,
                          nb=args.boundary_particles)
         varnames = ("dens", "cellnumber")   # solver.cu:108
-        from tpufluids.step import resolve_kernel_family
-        if (args.particles and args.particles != 8000
-                and resolve_kernel_family(cfg, state.capacity) == "column"):
-            # the preset pallas_col_cap is tuned to the default
-            # 8000-particle dam; a larger dam packs taller (x, y)
-            # columns, which would overflow the COLUMN kernel family
-            # (dropped force pairs, surfaced only via bin_overflow) —
-            # derive the cap from the actual initial occupancy instead.
-            # The rowblock family has no capacity cap and never reads
-            # pallas_col_cap.
-            from tpufluids.binning import suggest_col_cap
-            cfg = cfg.replace(pallas_col_cap=suggest_col_cap(state, cfg))
         if args.sort_every > 1:
             cfg = cfg.replace(sort_every=args.sort_every)
     else:
@@ -221,13 +200,11 @@ def run_grid(args):
         state_leaf = s.dens
     elif args.scene == "grid3d_sharded":
         from tpufluids.shard import grid_sharded, make_mesh
-        cfg = cfg.replace(advect_mode=args.advect_mode)
         mesh = make_mesh(args.devices)
         s = grid_sharded.shard_state(
             grid_sharded.to_sharded_layout(stam.make_grid3d(cfg)), mesh)
         step_fn = grid_sharded.make_sharded_step(mesh, cfg,
-                                                 n_steps=args.steps,
-                                                 backend=args.backend)
+                                                 n_steps=args.steps)
         s, res = step_fn(s)
         res = float(res)
         state_leaf = s.dens
@@ -282,6 +259,8 @@ def main(argv=None):
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from tpufluids import compile_cache
+    compile_cache.enable()
     import os
     if args.out:
         os.makedirs(args.out, exist_ok=True)

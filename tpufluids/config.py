@@ -143,80 +143,26 @@ class SPHConfig:
     split_reinjection: bool = False
     split_child_y_offset: float = -0.03
 
-    # --- TPU-side numerics (no reference equivalent) -------------------------
-    # SPH force-pass backend: "auto" (pallas on TPU, xla elsewhere),
-    # "xla" (gather-based), or "pallas" (column-window kernels,
-    # tpufluids/sph_pallas.py, both variants incl. merge-enabled unidyn
-    # runs; 4-5x on v5e at the reference scenes). Column population cap
-    # is 128 (counted overflow); pallas falls back to xla only for
-    # base-variant subbin mode (see step.use_pallas_forces).
+    # --- pair-pass backend and sort cadence (no reference equivalent) -----
+    # SPH pair-pass backend (step.resolve_force_backend): "auto" (the
+    # cell-list kernel of tpufluids/sph_triton.py on a GPU, the XLA
+    # gather pass anywhere else), "xla", "triton", or "interpret" (the
+    # kernel under the Pallas interpreter, for CPU tests).
     force_backend: str = "auto"
-    # pallas column-window capacity (home block rows / window rows).
-    # Must cover the densest (x, y) column of the sorted pool (column
-    # population overflow is counted in StepMetrics.bin_overflow and
-    # the excess particles' pairs are dropped deterministically).
-    # Multiples of 128 (lane width); raise for dense large-N scenes.
-    pallas_col_cap: int = 128
-    # window-sublane chunk: >0 processes each neighbor-column window in
-    # chunks of this many sublanes under a dynamic loop, so pair-tile
-    # VPU work scales with the actual column population instead of the
-    # worst-case cap (sph_pallas._window_loop). 0 = whole-cap tiles.
-    # 64 measured best on v5e for both scenes (verify/bench_sph_rb_sweep).
-    pallas_w_chunk: int = 64
-    # home-LANE chunk for the column family: >0 computes pair tiles in
-    # static lane chunks of this size and skips chunks past the
-    # column's population (sph_pallas._make_base_body_hc), so home-side
-    # VPU work scales with occupancy instead of the cap (~56% at the
-    # 524k uniform fill's suggested cap).  0 = whole-cap tiles; -1 =
-    # auto (128 when the column cap exceeds one lane tile, else 0 —
-    # measured v5e at 524k uniform fill, cap 584: h_chunk 0 = 127.4,
-    # 64 = 179.2, 128 = 111.3 ms/step with bitwise-identical
-    # positions; verify/bench_sph_hchunk_ab.py).  Base variant only.
-    pallas_h_chunk: int = -1
-    # z-band tile skip for the home-chunked column family: skip
-    # (window-chunk x home-chunk) pair tiles whose z-cell bands are
-    # not stencil-adjacent (the cell-sorted packed layout makes both
-    # chunk kinds contiguous z bands; the |czi-czj|<=1 pair gate
-    # zeroes non-adjacent tiles, so skipping them is bitwise
-    # identical — sph_pallas._make_base_body_hc; the rowblock family
-    # has the analogous candidate-chunk skip, _rowblock_sweep).  -1 =
-    # auto (column: on when the home block spans >= 4 h_chunk chunks;
-    # rowblock: off), 0 = off, 1 = on for both families.  Measured v5e
-    # (verify/bench_sph_zskip_ab.py): 524k uniform fill / cap 584 =
-    # 5 chunks: column 110.9 -> 104.2 ms/step ON; 131k / cap 176 =
-    # 2 chunks: 24.6 -> 30.0 OFF (cond dispatch overhead dominates);
-    # rowblock 156 -> 197 at 524k, so auto never enables it there.
-    pallas_z_skip: int = -1
-    # Pallas force-kernel family: "rowblock" (home block = 128
-    # consecutive sorted rows — full lane utilization, NO capacity cap,
-    # overflow impossible), "column" (one (x,y) grid column per
-    # program, pallas_col_cap-padded tiles), "resident" (unidyn only:
-    # fused two-pass whole-pool-in-VMEM kernel, auto-selected for
-    # unidyn pools <= sph_pallas.RESIDENT_MAX_BYTES when no sharded
-    # drift_fix is in play), or "auto" (rowblock up to
-    # ROWBLOCK_MAX_POOL rows, column above — the measured v5e
-    # crossover: rowblock wins 4.5/25.1 vs 7.6/28.2 ms/step at
-    # 32k/131k uniform fill but loses 156 vs 132 at 524k, where the
-    # rowblock windows span too many cells;
-    # verify/bench_sph_scaling_ab.py).  Both families serve the full
-    # cube AND sharded x-slabs (binning.GridSpec).
-    pallas_kernel: str = "auto"
     # Spatial-sort cadence: 1 = re-sort the pool every step (the
     # reference's thrust::sort_by_key cadence, solver.cu:181).  K > 1
-    # re-sorts every K-th step and reuses the binning tables in
-    # between (the pool storage stays in the last sort's order, so the
-    # Pallas kernels read it without the per-step order gather — at 2M
-    # particles sort+pack were 28% of the step, BASELINE.md r4/r5).
-    # Between sorts the neighbor WINDOWS come from sort-time cell
-    # membership while the pair masks (|dcx|,|dcy|,|dcz| <= 1 and
-    # ds <= 2h) are evaluated on CURRENT positions, so the pair set is
-    # the fresh-sort set minus pairs whose endpoints drifted >= 1 cell
-    # apart in x/y since the sort — with per-step drift bounded by
-    # max_speed*dt (a few % of a cell at the reference scenes), losses
-    # sit in the same outer-support tail the reference's own 27-cell
-    # stencil already truncates (FluidGPU.cu:124-126).  Python drivers
-    # (run/run_python) only; requires the Pallas backend and the base
-    # variant (unidyn's octant/home_count sub-bin state would go stale).
+    # re-sorts every K-th step (and at the start of each run_chunk) and
+    # reuses the binning tables in between: the pool storage stays in
+    # the last sort's order, so the kernel reads it without the
+    # per-step sort and order gather.  Between sorts the candidate
+    # ranges and the 27-cell masks come from sort-time cells while
+    # distances (ds <= 2h) are current, so the pair set is the
+    # sort-time stencil set: with per-step drift bounded by
+    # max_speed*dt (a few % of a cell at the reference scenes), the
+    # pairs it misses sit in the outer-support tail the reference's own
+    # 27-cell stencil already truncates (FluidGPU.cu:124-126).  Base
+    # variant and kernel backend only (unidyn's octant/home_count
+    # sub-bin state would go stale).
     sort_every: int = 1
     # dense neighbor-run capacity: each of the 9 (dx,dy) stencil runs covers
     # the contiguous cells (z-1, z, z+1) and holds at most 3*max_per_cell
@@ -246,10 +192,7 @@ class SPHConfig:
 
 
 # Base variant preset: FluidGPU.cuh:1-31 + solver.cu scene constants.
-# pallas_col_cap 80: the dam column's max (x,y)-column population is
-# 64 over the full 4000-step run (verify/_occ_probe.py) — the default
-# 128 doubles the force kernel's padded tile work for nothing
-BASE_CONFIG = SPHConfig(pallas_col_cap=80)
+BASE_CONFIG = SPHConfig()
 
 # unidyn variant preset: FluidGPU-unidyn.cuh:1-36.
 UNIDYN_CONFIG = SPHConfig(

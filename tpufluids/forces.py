@@ -76,9 +76,7 @@ def pair_geometry(state: ParticleState, cand: Candidates,
     """Gather neighbor fields and compute pair geometry.
 
     All per-neighbor fields are packed into ONE (N, F) matrix and
-    gathered with a single row-gather: TPU gather cost is per-index and
-    independent of row width, so one 12-wide gather is ~7x cheaper than
-    separate per-field gathers (measured on v5e).
+    gathered with a single row gather instead of one gather per field.
     """
     n = state.pos.shape[0]
     idx = cand.idx.reshape(n, -1)
@@ -122,7 +120,7 @@ def granular_pass(state: ParticleState, vel_grad: jax.Array,
     """Per-particle granular pass (FluidGPU-unidyn.cu:410-446): strain
     rate from the accumulated velocity gradient, Drucker-Prager yield
     scaling of sigma, and the stress-rate update.  Pure per-particle
-    math, shared by the XLA and Pallas force backends.
+    math, shared by the XLA and kernel force backends.
 
     Returns (stress_scaled, stress_rate)."""
     press, solid = state.press, state.solid
@@ -160,13 +158,13 @@ def compute_split_trigger(state: ParticleState, diffusion: jax.Array,
                | (state.dens < cfg.split_dens_max)))
 
 
-def accum_from_pallas(state: ParticleState, r: dict,
+def accum_from_kernel(state: ParticleState, r: dict,
                       cfg: SPHConfig) -> ForceAccum:
-    """Assemble a full ForceAccum from the Pallas pair-pass results
-    (tpufluids.sph_pallas.unidyn_forces_pallas), running the shared
+    """Assemble a full ForceAccum from the pair-kernel results
+    (tpufluids.sph_triton.unidyn_forces), running the shared
     per-particle granular pass and split trigger.  The merge partner
-    search runs inside the Pallas pass-A kernel when merge_dist > 0
-    (the in-kernel placement of FluidGPU-unidyn.cu:261-275)."""
+    search runs inside the pass-A kernel when merge_dist > 0 (the
+    in-kernel placement of FluidGPU-unidyn.cu:261-275)."""
     n = state.capacity
     sig, rate = granular_pass(state, r["vel_grad"], cfg)
     split = compute_split_trigger(state, r["diffusion"], r["has_pair"],
@@ -351,7 +349,7 @@ def compute_forces(state: ParticleState, bt: BinTable,
                      + (-drift_f) / dens_j, mask)
 
     # ---- per-particle granular pass + split trigger (shared with the
-    # Pallas backend, see sph_step) -----------------------------------------
+    # kernel backend, see accum_from_kernel) --------------------------------
     sig, rate = granular_pass(state, vel_grad, cfg)
     has_pair = jnp.any(mask, axis=1)
     split_trigger = compute_split_trigger(state, diffusion, has_pair, cfg)

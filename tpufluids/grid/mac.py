@@ -16,8 +16,7 @@ option.  Design:
 * ``u`` (n+1, n, n), ``v`` (n, n+1, n), ``w`` (n, n, n+1) face arrays;
   ``dens``/``temp`` (n, n, n) cell arrays.  No ghost layers on faces;
   pressure is solved on a ghosted (n+2)^3 array so the existing
-  Jacobi/red-black machinery — including the fused Pallas solver — is
-  reused verbatim (set_bnd(0, p) = homogeneous Neumann).
+  Jacobi/red-black machinery is reused verbatim (set_bnd(0, p) = homogeneous Neumann).
 * boundary conditions: no-flux (normal velocity pinned to 0 on domain
   faces) + free-slip (tangential components unconstrained).
 * advection is the same CFL-clamped 27-tap stencil formulation as
@@ -32,12 +31,12 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpufluids.grid import stam
+from tpufluids.state import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class MacState3D:
     u: jax.Array      # (n+1, n, n) x-velocity on x-faces
     v: jax.Array      # (n, n+1, n)
@@ -156,8 +155,7 @@ def _advect_stencil(q, ou, ov, ow, dt0):
 
 def project(u, v, w, cfg: stam.StamConfig, with_residual: bool = False):
     """MAC pressure projection.  div and p live on a ghosted (n+2)^3
-    array so stam's lin_solve machinery (incl. the Pallas fused
-    red-black solver) applies unchanged; set_bnd(0, .) = homogeneous
+    array so stam's lin_solve machinery applies unchanged; set_bnd(0, .) = homogeneous
     Neumann, the physical BC for no-flux walls."""
     n = cfg.n
     h = 1.0 / n
@@ -169,9 +167,8 @@ def project(u, v, w, cfg: stam.StamConfig, with_residual: bool = False):
     elif cfg.projection == "dct":
         p = stam.dct_solve3d(div, cfg)
     else:
-        p = stam._lin_solve3d(0, jnp.zeros_like(div), div, 1.0, 6.0,
-                              cfg.jacobi_iters, cfg,
-                              red_black=cfg.red_black)
+        p = stam.lin_solve3d(0, jnp.zeros_like(div), div, 1.0, 6.0,
+                             cfg.jacobi_iters, red_black=cfg.red_black)
     pi = p[1:-1, 1:-1, 1:-1]
     # subtract the pressure gradient on interior faces (h cancels: p
     # solved in units of h^2 * div)
@@ -239,14 +236,10 @@ def _jitted_step3d(cfg: stam.StamConfig, with_residual: bool = False):
 
 
 def run3d_python(state: MacState3D, cfg: stam.StamConfig, n_steps: int):
-    """Python-driven step loop (one jitted dispatch per step) — the
-    fast path on runtimes where Pallas custom calls inside lax.scan pay
-    a per-call host round trip (see stam.run3d_python).  Returns
-    (state, residual[-1:])."""
+    """Python-driven step loop (one jitted dispatch per step; see
+    stam.run3d_python).  Returns (state, residual[-1:])."""
     step = _jitted_step3d(cfg)
-    for i in range(max(n_steps - 1, 0)):
+    for _ in range(max(n_steps - 1, 0)):
         state = step(state)
-        if (i & 7) == 7:
-            float(state.dens[1, 1, 1])
     state, res = _jitted_step3d(cfg, True)(state)
     return state, jnp.reshape(res, (1,))

@@ -1,7 +1,7 @@
 """O(N^2) NumPy reference oracle.
 
 The reference has no tests (SURVEY.md §4); this module is the
-correctness pin for the TPU implementation.  It computes one full
+correctness pin for this implementation.  It computes one full
 physics step for both variants with dense all-pairs math in float64,
 following the exact formula set and operation ordering of the CUDA
 kernels:
@@ -18,7 +18,7 @@ kernels:
   27-cell stencil (|dcx|,|dcy|,|dcz| <= 1) — this reproduces the
   reference's binned truncation (with cell_size < support the stencil
   genuinely drops far neighbors, e.g. base: 0.05 < 0.12) and is what
-  the binned TPU implementation computes.
+  the binned implementation computes.
 * "subbin": additionally, particles whose home cell population exceeds
   ``subbin_threshold`` use the octant 8-cell stencil of the fine force
   kernel (FluidGPU-unidyn.cu:579-583, 675-677) instead of the 27-cell
@@ -27,7 +27,7 @@ kernels:
 Determinism notes (deviations from the reference, by design):
 * the reference accumulates with atomicAdd and *reads* drift
   velocities, diffusion and stress tensors while other threads write
-  them (order-dependent results).  The oracle (and the TPU build)
+  them (order-dependent results).  The oracle (and the JAX build)
   resolve the race deterministically: drift velocities are fully
   accumulated first, then the mixture/transport terms that consume
   them (pass B), then the per-particle granular update.

@@ -1,5 +1,5 @@
-"""Sharded 3D stable-fluids step: x-slab decomposition + ICI halo
-exchange (BASELINE config 5: 512^3 over a device mesh).
+"""Sharded 3D stable-fluids step: x-slab decomposition + halo exchange
+(BASELINE config 5: 512^3 over a device mesh).
 
 Layout: the global field interior is (n, n+2, n+2) — NO ghost planes
 along the sharded x axis (they are materialized locally), ghost layers
@@ -7,7 +7,7 @@ kept along y/z.  The array shards evenly along x over the 1-D mesh.
 Inside ``shard_map`` each device pads its slab with two halo planes,
 refreshed by ``jax.lax.ppermute`` before every stencil application —
 the exact communication pattern of the reference's 1-cell-plane halo
-buffer (``buffer = GRIDSIZE^2``, solver-unidyn.cu:187), but over ICI
+buffer (``buffer = GRIDSIZE^2``, solver-unidyn.cu:187), but device to device
 instead of host-staged memcpy.
 
 Numerics match the single-device stam.step3d exactly (tests assert
@@ -144,13 +144,11 @@ def _advect_local(b, q, u, v, w, cfg, n_dev, n):
     """Semi-Lagrangian advection on a local slab; backtraces clamp to
     the one-plane halo across the shard boundary.
 
-    NOTE: the XLA slab fallback always uses this GATHER formulation
-    regardless of cfg.advect_mode — with ``advect_mode="stencil"`` it
-    matches the dense stencil path only away from domain edges (the
-    two formulations clamp edge backtraces differently, a few % on
-    edge cells).  The production Pallas sharded backend runs the same
-    stencil advection as the dense step and matches it everywhere
-    (tests/test_grid_sharded.py::test_sharded_pallas_step_matches_dense)."""
+    NOTE: the slab step always uses this GATHER formulation regardless
+    of cfg.advect_mode — with ``advect_mode="stencil"`` it matches the
+    dense stencil path only away from domain edges (the two
+    formulations clamp edge backtraces differently, a few % on edge
+    cells)."""
     c_local = q.shape[0]
     dt0 = cfg.dt * n
     gx0 = jax.lax.axis_index(AXIS) * c_local  # global x of local row 0
@@ -191,7 +189,7 @@ def _dct_solve_local(x0, n, n_dev, cfg=None, final=True):
     """Sharded spectral projection solve (stam._dct_solve_interior over
     x-slabs): y/z cosine transforms are local matmuls; the x transform
     contracts the sharded axis as a per-device partial matmul followed
-    by ``psum_scatter`` — one reduce-scatter over ICI each way, versus
+    by ``psum_scatter`` — one reduce-scatter each way, versus
     the iterative solver's 2 halo exchanges per iteration."""
     from tpufluids.grid.stam import _DCT_PREC, _dct_axis, _dct_mats, \
         _dct_params
@@ -230,101 +228,6 @@ def _dct_solve_local(x0, n, n_dev, cfg=None, final=True):
     sol = t_ax(sol, Ci, 2)
     p = jnp.zeros_like(x0).at[:, 1:-1, 1:-1].set(sol)
     return _set_bnd_yz(0, p)
-
-
-def _dct_solve_local_zg(dslab, n, n_dev, cfg, te, final=True):
-    """Sharded spectral projection solve directly on the z-ghostless
-    slab layout (stam.dct_solve3d_zg over x-slabs): y/z cosine
-    transforms are local matmuls, the x transform contracts the
-    sharded axis as a per-device partial matmul + ``psum_scatter``
-    (one reduce-scatter over ICI each way).  Keeps the Pallas
-    per-shard pipeline fully resident in the zg layout — without this
-    a ``projection='dct'`` sharded step fell back to the pure-XLA slab
-    step, whose 256^3 compile is pathological (round-4 incident: the
-    config-5 bench secondary killed the TPU worker)."""
-    from tpufluids.grid.stam import (_DCT_PREC, _dct_axis, _dct_mats,
-                                     _radix_fwd_axis, _radix_inv_axis)
-
-    from tpufluids.grid.stam import _dct_params
-    prec_key, radix_min, radix_levels = _dct_params(cfg, final)
-    prec = _DCT_PREC[prec_key]
-    y_true, z_true = te
-    zi = z_true - 2
-    c = dslab.shape[0]
-    xi = dslab[:, 1:y_true - 1, :zi]
-
-    if n_dev == 1:
-        # the slab IS the full interior: run the dense interior solver
-        # (radix split on ALL THREE axes, no partial-matmul/collective
-        # pattern — on a 1-device mesh that pattern cost real time even
-        # though the psum_scatter itself is a no-op: config5 ran 13.5%
-        # over the unsharded step in BENCH_r04, the same trick as the
-        # SPH n_dev==1 static fast path, r4)
-        from tpufluids.grid.stam import _dct_solve_interior
-        sol = _dct_solve_interior(xi, prec_key, radix_min, radix_levels)
-        p = jnp.zeros_like(dslab).at[:, 1:y_true - 1, :zi].set(sol)
-        p = p.at[:, 0].set(p[:, 1])
-        p = p.at[:, y_true - 1].set(p[:, y_true - 2])
-        return p
-
-    off = jax.lax.axis_index(AXIS) * c
-    C, Ci, lam1 = _dct_mats(n)
-    # radix-2 split on the LOCAL (y/z) transforms only — the sharded x
-    # transform stays the partial-matmul + psum_scatter contraction
-    use_radix = bool(radix_min) and n >= radix_min and n % 2 == 0
-
-    def xmul(a, m):
-        cols = jax.lax.dynamic_slice_in_dim(m, off, c, axis=1)
-        part = jnp.tensordot(cols, a, axes=((1,), (0,)), precision=prec)
-        if n_dev == 1:
-            return part
-        return jax.lax.psum_scatter(part, AXIS, scatter_dimension=0,
-                                    tiled=True)
-
-    lamx = jax.lax.dynamic_slice_in_dim(lam1, off, c)
-    F = xmul(xi, C)
-    if use_radix:
-        pieces = [(F, [])]
-        pieces = _radix_fwd_axis(pieces, 1, prec, radix_levels)
-        pieces = _radix_fwd_axis(pieces, 2, prec, radix_levels)
-        solved = []
-        for k, (a, lams) in enumerate(pieces):
-            lam = (lamx[:, None, None] + lams[0][None, :, None]
-                   + lams[1][None, None, :])
-            if k == 0:
-                a = a / jnp.where(lam == 0.0, 1.0, lam)
-                # zero the global (0,0,0) gauge mode (device 0's slab)
-                m2 = n // 2
-                gauge = ((jnp.arange(c)[:, None, None] + off == 0)
-                         & (jnp.arange(m2)[None, :, None] == 0)
-                         & (jnp.arange(m2)[None, None, :] == 0))
-                a = jnp.where(gauge, 0.0, a)
-            else:
-                a = a / lam
-            solved.append(a)
-        pieces = _radix_inv_axis(solved, 2, prec, radix_levels)
-        pieces = _radix_inv_axis(pieces, 1, prec, radix_levels)
-        sol = xmul(pieces[0], Ci)
-    else:
-        F = _dct_axis(F, C, 1, prec)
-        F = _dct_axis(F, C, 2, prec)
-        lam = (lamx[:, None, None]
-               + lam1[None, :, None] + lam1[None, None, :])
-        coef = F / jnp.where(lam == 0.0, 1.0, lam)
-        # zero the global (0,0,0) gauge mode (lives on device 0's slab)
-        gauge = ((jnp.arange(c)[:, None, None] + off == 0)
-                 & (jnp.arange(n)[None, :, None] == 0)
-                 & (jnp.arange(n)[None, None, :] == 0))
-        coef = jnp.where(gauge, 0.0, coef)
-        sol = xmul(coef, Ci)
-        sol = _dct_axis(sol, Ci, 1, prec)
-        sol = _dct_axis(sol, Ci, 2, prec)
-    p = jnp.zeros_like(dslab).at[:, 1:y_true - 1, :zi].set(sol)
-    # stored ghost faces (y only; z faces are synthesized by zg
-    # consumers as +1 * adjacent, the b=0 dense value)
-    p = p.at[:, 0].set(p[:, 1])
-    p = p.at[:, y_true - 1].set(p[:, y_true - 2])
-    return p
 
 
 def _divergence_local(u, v, w, n, n_dev):
@@ -440,201 +343,11 @@ def _step_local(u, v, w, dens, temp, cfg: StamConfig, n: int, n_dev: int,
     return u, v, w, dens, temp, res
 
 
-# ---------------------------------------------------------------------------
-# Pallas per-shard step: the dense z-ghostless kernel pipeline
-# (grid/pallas_kernels.py) run slab-locally between ICI halo exchanges.
-# Numerics match the dense stam.step3d pallas path (tests assert
-# allclose); the deep-halo packed solver exchanges once per ``fuse``
-# iterations instead of once per sweep.
-
-
-def _refresh_halo(q, b, n_dev):
-    """Rewrite the 2 pad rows on each side of a PERSISTENTLY padded
-    z-ghostless slab (c+4, yp, zp; interior rows [2:-2]) in place:
-    rows [0:2] / [-2:] become the neighbor's two adjacent interior
-    rows over ICI, or at the domain x-faces the set_bnd ghost
-    (sx * edge row at the adjacent pad row, zero junk beyond it that
-    the kernels' global interior masks and face gates wall off) —
-    2-row writes instead of a per-stage full-array concatenate copy.
-    Kernel outputs carry garbage pad rows; calling this before every
-    stencil read re-validates them."""
-    sx = _sx(b)
-    zero = jnp.zeros_like(q[0:1])
-    lo_edge = jnp.concatenate([zero, sx * q[2:3]], axis=0)
-    hi_edge = jnp.concatenate([sx * q[-3:-2], zero], axis=0)
-    if n_dev > 1:
-        idx = jax.lax.axis_index(AXIS)
-        right = [(i, (i + 1) % n_dev) for i in range(n_dev)]
-        left = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-        from_left = jax.lax.ppermute(q[-4:-2], AXIS, right)
-        from_right = jax.lax.ppermute(q[2:4], AXIS, left)
-        lo = jnp.where(idx == 0, lo_edge, from_left)
-        hi = jnp.where(idx == n_dev - 1, hi_edge, from_right)
-    else:
-        lo, hi = lo_edge, hi_edge
-    return q.at[0:2].set(lo).at[-2:].set(hi)
-
-
-def _sx(b):
-    return -1.0 if b == 1 else 1.0
-
-
-def _refresh_halo_multi(qs, bs, n_dev):
-    """_refresh_halo over several same-shape fields with ONE ppermute
-    each way: the per-field 2-row edge slabs are concatenated along
-    axis 0, exchanged as a single (2k, Y, Z) message, and split back.
-    Bit-identical to per-field refreshes; cuts the sharded step's
-    collective count ~3-5x (each 2-row message is latency-bound, so
-    batching k fields into one message is nearly free on ICI —
-    VERDICT r4 #3's halo-overlap lever in its robust form)."""
-    if n_dev == 1 or len(qs) == 1:
-        return tuple(_refresh_halo(q, b, n_dev) for q, b in zip(qs, bs))
-    idx = jax.lax.axis_index(AXIS)
-    right = [(i, (i + 1) % n_dev) for i in range(n_dev)]
-    left = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-    from_left = jax.lax.ppermute(
-        jnp.concatenate([q[-4:-2] for q in qs], axis=0), AXIS, right)
-    from_right = jax.lax.ppermute(
-        jnp.concatenate([q[2:4] for q in qs], axis=0), AXIS, left)
-    zero = jnp.zeros_like(qs[0][0:1])
-    out = []
-    for i, (q, b) in enumerate(zip(qs, bs)):
-        sx = _sx(b)
-        lo_edge = jnp.concatenate([zero, sx * q[2:3]], axis=0)
-        hi_edge = jnp.concatenate([sx * q[-3:-2], zero], axis=0)
-        lo = jnp.where(idx == 0, lo_edge, from_left[2 * i:2 * i + 2])
-        hi = jnp.where(idx == n_dev - 1, hi_edge,
-                       from_right[2 * i:2 * i + 2])
-        out.append(q.at[0:2].set(lo).at[-2:].set(hi))
-    return tuple(out)
-
-
-def _step_local_pallas(u, v, w, dens, temp, cfg: StamConfig, n: int,
-                       n_dev: int, te, plan, with_residual=True):
-    """One slab-local step on PERSISTENTLY padded z-ghostless
-    (c+4, yp, zp) fields (interior rows [2:-2]) using the dense Pallas
-    kernels with global-coordinate placement (gx0/gn).
-
-    The persistent pad replaces the previous per-stage
-    ``jnp.concatenate`` halo pads and ``[1:-1]`` output slices
-    (~30 full-array XLA copies per step at 256^3): kernels read and
-    write the padded arrays directly, and ``_refresh_halo`` re-validates
-    the 4 pad rows (2-row in-place writes + one 2-plane ppermute each
-    way) before every stencil read.  Kernel placement is unchanged —
-    gx0 = idx*c - 1 is exactly where the old depth-2 forcing pad put
-    row 0, and div/gradsub treat the extra rows as discardable, so the
-    per-cell arithmetic (and the bit-compat vs the dense step) is
-    identical."""
-    from tpufluids.grid.pallas_kernels import (advect3d_multi_pallas,
-                                               div3d_pallas,
-                                               forcing3d_pallas,
-                                               gradsub3d_pallas,
-                                               lin_solve3d_rb_shard,
-                                               zg_restore)
-
-    y_true, z_true = te
-    c = u.shape[0] - 4
-    idx = jax.lax.axis_index(AXIS) if n_dev > 1 else 0
-    gn = n + 2
-    h = 1.0 / n
-    tx, fuse, pipeline = plan
-    gx0 = idx * c - 1  # dense-global x of padded row 0
-
-    def refresh(q, b):
-        return _refresh_halo(q, b, n_dev)
-
-    def repad(q_slab):
-        return jnp.pad(q_slab, ((2, 2), (0, 0), (0, 0)))
-
-    def solve(b, x_slab, x0_slab, a_, c_, x_zero=False):
-        return lin_solve3d_rb_shard(
-            b, x_slab, x0_slab, float(a_), float(c_), cfg.jacobi_iters,
-            axis_name=AXIS, n_dev=n_dev, y_true=y_true, z_true=z_true,
-            tx=tx, fuse=fuse, pipeline=pipeline, x_zero=x_zero)
-
-    def solve_padded(b, q, a_, c_):
-        s = q[2:-2]
-        return repad(solve(b, s, s, a_, c_))
-
-    if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
-        u, v, w, dens, temp = _refresh_halo_multi(
-            (u, v, w, dens, temp), (1, 2, 3, 0, 0), n_dev)
-        u, v, w = forcing3d_pallas(
-            u, v, w, dens, temp, float(cfg.dt), h,
-            float(cfg.vorticity_eps), float(cfg.buoyancy_alpha),
-            float(cfg.buoyancy_beta), float(cfg.ambient_temp), tx=16,
-            true_extents=te, gx0=gx0, gn=gn)
-    if cfg.visc:
-        a_ = cfg.dt * cfg.visc * n * n
-        u = solve_padded(1, u, a_, 1 + 6 * a_)
-        v = solve_padded(2, v, a_, 1 + 6 * a_)
-        w = solve_padded(3, w, a_, 1 + 6 * a_)
-
-    def project(u, v, w, with_residual=False, final=True):
-        u, v, w = _refresh_halo_multi((u, v, w), (1, 2, 3), n_dev)
-        div = div3d_pallas(u, v, w, true_extents=te, h=h)
-        dslab = div[2:-2]
-        if cfg.projection == "dct":
-            p_ = _dct_solve_local_zg(dslab, n, n_dev, cfg, te,
-                                     final=final)
-        else:
-            p_ = solve(0, dslab, dslab, 1.0, 6.0, x_zero=True)
-        pp = refresh(repad(p_), 0)
-        uo, vo, wo = gradsub3d_pallas(pp, u, v, w, true_extents=te,
-                                      h=h)
-        if not with_residual:
-            return uo, vo, wo, jnp.float32(0)
-        pd = zg_restore(p_, 0, y_true, z_true)
-        ppd = zg_restore(pp[1:-1], 0, y_true, z_true)
-        dd = zg_restore(dslab, 0, y_true, z_true)
-        nb = (ppd[:-2, 1:-1, 1:-1] + ppd[2:, 1:-1, 1:-1]
-              + pd[:, :-2, 1:-1] + pd[:, 2:, 1:-1]
-              + pd[:, 1:-1, :-2] + pd[:, 1:-1, 2:])
-        res = jnp.max(jnp.abs(dd[:, 1:-1, 1:-1] + nb
-                              - 6.0 * pd[:, 1:-1, 1:-1]))
-        return uo, vo, wo, jax.lax.pmax(res, AXIS) if n_dev > 1 else res
-
-    u, v, w, _ = project(u, v, w, final=False)
-    u, v, w = _refresh_halo_multi((u, v, w), (1, 2, 3), n_dev)
-    u, v, w = advect3d_multi_pallas(
-        (u, v, w), (1, 2, 3), u, v, w, float(cfg.dt * n),
-        self_advect=True, true_extents=te, gx0=gx0, gn=gn)
-    u, v, w, res = project(u, v, w, with_residual=with_residual)
-
-    if cfg.diff:
-        a_ = cfg.dt * cfg.diff * n * n
-        dens = solve_padded(0, dens, a_, 1 + 6 * a_)
-    if cfg.temp_diff:
-        a_ = cfg.dt * cfg.temp_diff * n * n
-        temp = solve_padded(0, temp, a_, 1 + 6 * a_)
-    u, v, w, dens, temp = _refresh_halo_multi(
-        (u, v, w, dens, temp), (1, 2, 3, 0, 0), n_dev)
-    dens, temp = advect3d_multi_pallas(
-        (dens, temp), (0, 0), u, v, w,
-        float(cfg.dt * n), true_extents=te, gx0=gx0, gn=gn)
-    return u, v, w, dens, temp, res
-
-
-def _pallas_sharded_supported(cfg: StamConfig) -> bool:
-    # dct projection runs _dct_solve_local_zg inside the pallas
-    # pipeline; red_black is still required because any visc/diff
-    # solves go through the packed red-black shard solver
-    return (cfg.projection in ("jacobi", "dct") and cfg.red_black
-            and cfg.advect_mode == "stencil"
-            and cfg.solver_dtype != "bfloat16"
-            and cfg.n + 2 >= 16)
-
-
-def make_sharded_step(mesh: Mesh, cfg: StamConfig, n_steps: int = 1,
-                      backend: str = "auto"):
+def make_sharded_step(mesh: Mesh, cfg: StamConfig, n_steps: int = 1):
     """Build a jitted sharded scan of ``n_steps`` 3D steps.
 
     Takes/returns GridState3D in sharded layout ((n, n+2, n+2) fields,
-    sharded along x).  Also returns the last step's Poisson residual.
-
-    ``backend``: "auto" (pallas per-shard kernels on TPU when the
-    config supports them — red-black jacobi projection + stencil
-    advection — else the XLA slab step), "pallas", or "xla"."""
+    sharded along x).  Also returns the last step's Poisson residual."""
     n_dev = mesh.devices.size
     n = cfg.n
     if n % n_dev:
@@ -645,73 +358,22 @@ def make_sharded_step(mesh: Mesh, cfg: StamConfig, n_steps: int = 1,
         raise ValueError(
             f"sharded step supports projection in ('jacobi', 'dct'), "
             f"got {cfg.projection!r}")
-    c_local = n // n_dev
-    # packed checkerboard parity needs even slabs; the deep-halo pad
-    # needs at least 2 donatable rows per slab
-    slab_ok = c_local % 2 == 0 and c_local >= 2
-    if backend == "pallas" and not (_pallas_sharded_supported(cfg)
-                                    and slab_ok):
-        raise ValueError(
-            "backend='pallas' needs projection in ('jacobi', 'dct'), "
-            "red_black, advect_mode='stencil', float32 solver, "
-            f"n+2 >= 16, and an even per-device slab (n/n_dev = "
-            f"{c_local})")
-    use_pallas = (backend == "pallas"
-                  or (backend == "auto" and slab_ok
-                      and _pallas_sharded_supported(cfg)
-                      and jax.default_backend() == "tpu"))
     spec = P(AXIS, None, None)
 
-    plan = None
-    te = None
-    if use_pallas:
-        from tpufluids.grid.pallas_kernels import (rb_shard_plan,
-                                                   zg_extents, zg_pad,
-                                                   zg_restore)
-        te = (n + 2, n + 2)
-        yp, zp = zg_extents(n + 2, n + 2)
-        plan = rb_shard_plan(c_local, n + 2, n + 2, cfg.jacobi_iters)
-
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # annotation, which the shard_map vma checker rejects
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(spec,) * 5, out_specs=((spec,) * 5, P()),
-             check_vma=False)
+             in_specs=(spec,) * 5, out_specs=((spec,) * 5, P()))
     def run_local(u, v, w, dens, temp):
-        if use_pallas:
-            # persistent layout across the scan: z-ghostless y/z + 2
-            # pad rows per x side (see _step_local_pallas)
-            xpad = ((2, 2), (0, 0), (0, 0))
-            u, v, w, dens, temp = (
-                jnp.pad(zg_pad(q, yp, zp), xpad)
-                for q in (u, v, w, dens, temp))
-
-        def one_step(carry, with_residual):
-            u, v, w, dens, temp = carry
-            if use_pallas:
-                u, v, w, dens, temp, res = _step_local_pallas(
-                    u, v, w, dens, temp, cfg, n, n_dev, te, plan,
-                    with_residual=with_residual)
-            else:
-                u, v, w, dens, temp, res = _step_local(
-                    u, v, w, dens, temp, cfg, n, n_dev,
-                    with_residual=with_residual)
-            return (u, v, w, dens, temp), res
-
         def body(carry, _):
-            return one_step(carry, False)
+            u, v, w, dens, temp, _ = _step_local(
+                *carry, cfg, n, n_dev, with_residual=False)
+            return (u, v, w, dens, temp), None
 
         # residual on the FINAL step only (matches stam.run3d_python):
         # computing it per scan step costs ~5 extra full-array passes
         carry, _ = jax.lax.scan(
             body, (u, v, w, dens, temp), None, length=n_steps - 1)
-        (u, v, w, dens, temp), res = one_step(carry, True)
-        if use_pallas:
-            u = zg_restore(u[2:-2], 1, n + 2, n + 2)
-            v = zg_restore(v[2:-2], 2, n + 2, n + 2)
-            w = zg_restore(w[2:-2], 3, n + 2, n + 2)
-            dens = zg_restore(dens[2:-2], 0, n + 2, n + 2)
-            temp = zg_restore(temp[2:-2], 0, n + 2, n + 2)
+        u, v, w, dens, temp, res = _step_local(*carry, cfg, n, n_dev,
+                                               with_residual=True)
         return (u, v, w, dens, temp), res
 
     @jax.jit

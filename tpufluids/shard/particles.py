@@ -1,6 +1,6 @@
 """Sharded SPH: spatial domain decomposition over a device mesh.
 
-TPU-native rebuild of the reference's multi-GPU path (its only
+A rebuild of the reference's multi-GPU path (its only
 multi-device parallelism): a 1-D split of the cell grid along x with a
 one-cell-plane halo (``buffer = GRIDSIZE^2``, solver-unidyn.cu:187-195),
 per-device particle ownership, per-step halo copies and migration of
@@ -12,7 +12,7 @@ cells.  Per step, inside ``shard_map``:
 
 1. edge particles (in the slab's first/last owned x-plane) are packed
    into fixed-capacity buffers and exchanged with neighbors via
-   ``jax.lax.ppermute`` (ICI) — the halo copies;
+   ``jax.lax.ppermute`` — the halo copies;
 2. the local pool + halo particles are binned on the local slab grid
    (binning.GridSpec) and forces are computed by the SAME
    ``compute_forces`` as single-device.  For the two-phase variant,
@@ -45,7 +45,7 @@ from tpufluids.binning import GridSpec, cell_coords, sort_by_cell
 from tpufluids.config import SPHConfig
 from tpufluids.integrate import update
 from tpufluids.state import ParticleState
-from tpufluids.step import dispatch_forces, use_pallas_forces
+from tpufluids.step import dispatch_forces, resolve_force_backend
 
 AXIS = "x"
 
@@ -149,6 +149,7 @@ def make_sharded_step(mesh: Mesh, cfg: SPHConfig, halo_capacity: int = 512,
         raise ValueError(f"grid_size={g} must divide over {n_dev} devices")
     gpd = g // n_dev
     H, M = halo_capacity, migrate_capacity
+    kernel = resolve_force_backend(cfg) != "xla"
 
     def one_step_single_device(local: ParticleState):
         """n_dev == 1: no cut exists, so halo exchange, drift/merge
@@ -158,17 +159,14 @@ def make_sharded_step(mesh: Mesh, cfg: SPHConfig, halo_capacity: int = 512,
         checked-in config forces deviceCount=1 and skips the exchange
         block, solver-unidyn.cu:193-195, 396).  Cuts the sharded
         1-chip overhead from 2.2x to ~nil (VERDICT r3 weak #3)."""
-        use_pallas = use_pallas_forces(cfg, subbin_parity)
-        if use_pallas:
+        if kernel:
             order, bt = binning.sort_tables(local, cfg)
             comb = local
         else:
             comb, bt = sort_by_cell(local, cfg, runs=True)
             order = None
-        acc, kovf = dispatch_forces(comb, bt, cfg,
-                                    subbin_parity=subbin_parity,
-                                    order=order)
-        bt = bt._replace(overflow=bt.overflow + kovf)
+        acc = dispatch_forces(comb, bt, cfg, subbin_parity=subbin_parity,
+                              order=order)
         if cfg.variant != "base" and cfg.merge_dist > 0:
             comb = adapt.apply_merges(comb, acc.merge_partner, cfg)
         local = update(comb, acc, cfg)
@@ -208,8 +206,7 @@ def make_sharded_step(mesh: Mesh, cfg: SPHConfig, halo_capacity: int = 512,
             lambda a, b: jnp.concatenate([a, b], axis=0), local, halo)
 
         grid = GridSpec(g=g, x_planes=gpd + 2, x_offset=lo - 1)
-        use_pallas = use_pallas_forces(cfg, subbin_parity)
-        comb, bt = sort_by_cell(comb, cfg, grid, runs=not use_pallas)
+        comb, bt = sort_by_cell(comb, cfg, grid, runs=not kernel)
         owned_sorted = owned_flag[bt.order]
 
         # ---- drift-velocity re-exchange between pass A and pass B ------
@@ -236,11 +233,10 @@ def make_sharded_step(mesh: Mesh, cfg: SPHConfig, halo_capacity: int = 512,
                 jnp.where(rval[:, None], recv[:, 3:], fdv_orig[hrows]))
             return sdv_orig[bt.order], fdv_orig[bt.order]
 
-        acc, kovf = dispatch_forces(
+        acc = dispatch_forces(
             comb, bt, cfg, subbin_parity=subbin_parity,
             drift_fix=drift_fix if cfg.variant != "base" else None,
             grid=grid)
-        bt = bt._replace(overflow=bt.overflow + kovf)
 
         if cfg.variant != "base" and cfg.merge_dist > 0:
             # ---- merge across the cut (solver-unidyn.cu:339-349) -------

@@ -1,7 +1,7 @@
 """Particle state as a structure-of-arrays pytree.
 
 The reference stores an array-of-structures ``Particle`` of ~340 bytes
-(FluidGPU.cuh:59-305; FluidGPU-unidyn.cuh:68-424).  On TPU we keep one
+(FluidGPU.cuh:59-305; FluidGPU-unidyn.cuh:68-424).  Here we keep one
 array per field (SoA) so every physics pass is a dense vector op, and
 the whole state is a pytree that moves through ``jit``/``lax.scan``/
 ``shard_map`` untouched.
@@ -14,16 +14,24 @@ transient values inside the step function, not state.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpufluids.config import SPHConfig
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass whose fields are all pytree leaves, with a
+    ``replace(**fields)`` copy method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class ParticleState:
     """SoA particle pool of static capacity N.
 
